@@ -1,0 +1,478 @@
+"""Turbulent channel-flow DNS core in PyTorch: staggered-grid RK3 with an
+eigen-factorized FFT-Poisson projection.
+
+Counterpart of `pde_policylearning_tpu/envs/channel_flow.py`; the same
+layouts at every public function:
+  U, W: (Nx, Ny+1, Nz) at cell centres plus two ghost rows;
+  V: (Nx, Ny, Nz) at the wall-normal faces;
+x and z are periodic.  Leading batch dimensions broadcast through the
+stencil functions.
+
+The Poisson solve (`poisson_solve`) and the wall pressures
+(`boundary_pressures`) dispatch on the tensor's device: a CPU tensor takes
+the plain torch version, a CUDA tensor the hand-written kernel (see
+`poisson_cuda.py`, `rk3_cuda.py`).
+
+reference: libs/envs/control_env.py of pde-policylearning (compute_rhs_py,
+time_advance_RK3_py, compute_projection_step, compute_pressure_py) and
+main.m for the grid and the wall-normal operator.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.device import resolve_device
+
+_GRID_TENSORS = ("y", "ym", "yg", "kxx", "kzz", "eig_A", "eig_B", "eig_lam",
+                 "Pinv00_eq", "s00", "DD_diag", "DD_lower", "DD_upper",
+                 "eig_A1", "eig_B1", "eig_lam1", "schur_g", "schur_s")
+
+
+@dataclass(eq=False)
+class ChannelGrid:
+    """Grid geometry and the precomputed solver operators, on one device.
+
+    The eigen factors, the equilibrated (0,0)-mode inverse and the bordered
+    (Schur) factors are documented on the JAX `ChannelGrid`.  `cache` holds
+    what is derived from the grid once per grid: the kernels' constants and
+    their scratch workspaces (see `rk3_cuda.solve_consts`)."""
+    y: torch.Tensor          # (Ny,)
+    ym: torch.Tensor         # (Ny-1,)
+    yg: torch.Tensor         # (Ny+1,)
+    kxx: torch.Tensor        # (Nx,)
+    kzz: torch.Tensor        # (Nz,)
+    eig_A: torch.Tensor      # (n, n), n = Ny-1
+    eig_B: torch.Tensor      # (n, n)
+    eig_lam: torch.Tensor    # (n,)
+    Pinv00_eq: torch.Tensor  # (n, n)
+    s00: torch.Tensor        # (n,)
+    DD_diag: torch.Tensor    # (n,)
+    DD_lower: torch.Tensor   # (n-1,)
+    DD_upper: torch.Tensor   # (n-1,)
+    eig_A1: torch.Tensor     # (m, m), m = n-1
+    eig_B1: torch.Tensor     # (m, m)
+    eig_lam1: torch.Tensor   # (m,)
+    schur_g: torch.Tensor    # (m, F), F = Nx*(Nz//2+1)
+    schur_s: torch.Tensor    # (1, F)
+    dx: float
+    dz: float
+    dt: float
+    nu: float
+    Nx: int
+    Ny: int
+    Nz: int
+    refine_steps: int = 0
+    cache: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.y.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.y.dtype
+
+
+@dataclass(eq=False)
+class ChannelState:
+    U: torch.Tensor       # (Nx, Ny+1, Nz), or (Ny+1, C) in kernel layout
+    V: torch.Tensor       # (Nx, Ny, Nz),   or (Ny, C)
+    W: torch.Tensor       # (Nx, Ny+1, Nz), or (Ny+1, C)
+    dPdx: torch.Tensor    # 0-d: running reverse-calculated pressure gradient
+    meanU0: torch.Tensor  # 0-d: target bulk velocity for mass-flow control
+
+    def replace(self, **kw) -> "ChannelState":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_NU = 1.0 / 3250.0          # main.m:11
+DEFAULT_DPDX = 0.57231059e-1 ** 2  # main.m:12 (utau^2)
+
+
+def grid_from_arrays(d: dict, device=None, dtype=torch.float32) -> ChannelGrid:
+    """ChannelGrid from a dict keyed by the JAX `ChannelGrid` field names
+    (array fields as numpy arrays, plus the static dx, dz, dt, nu, Nx, Ny,
+    Nz, refine_steps)."""
+    dev = resolve_device(device)
+    tensors = {k: torch.as_tensor(np.array(d[k], np.float64)).to(dev, dtype)
+               for k in _GRID_TENSORS}
+    return ChannelGrid(
+        **tensors, dx=float(d["dx"]), dz=float(d["dz"]), dt=float(d["dt"]),
+        nu=float(d["nu"]), Nx=int(d["Nx"]), Ny=int(d["Ny"]), Nz=int(d["Nz"]),
+        refine_steps=int(d.get("refine_steps", 0)))
+
+
+def state_from_arrays(d: dict, device=None, dtype=torch.float32
+                      ) -> ChannelState:
+    """ChannelState from a dict of numpy arrays keyed U, V, W, dPdx,
+    meanU0 (the JAX `ChannelState` field names)."""
+    dev = resolve_device(device)
+    return ChannelState(**{
+        k: torch.as_tensor(np.array(d[k], np.float64)).to(dev, dtype)
+        for k in ("U", "V", "W", "dPdx", "meanU0")})
+
+
+def make_channel_grid(Nx: int = 32, Ny: int = 130, Nz: int = 32,
+                      Lx: float = 2 * math.pi, Lz: float = 2 * math.pi,
+                      stretch: float = 2.6,
+                      nu: float = DEFAULT_NU, dt: float = 1e-3,
+                      y: Optional[np.ndarray] = None,
+                      dtype=torch.float32,
+                      refine_steps: Optional[int] = None,
+                      device=None) -> ChannelGrid:
+    """Build the grid and its solver operators in numpy float64, then move
+    them to `device` in `dtype` (the JAX `make_channel_grid`, same math).
+
+    Default geometry: uniform periodic x/z, tanh-stretched y,
+    ``y = 1 + tanh(s * linspace(-1,1,Ny)) / tanh(s)`` (main.m:20-24)."""
+    dx = Lx / Nx
+    dz = Lz / Nz
+    if y is None:
+        y = 1.0 + np.tanh(stretch * np.linspace(-1, 1, Ny)) / np.tanh(stretch)
+    y = np.asarray(y, np.float64).reshape(-1)
+    Ny = len(y)
+    ym = 0.5 * (y[:-1] + y[1:])
+    yg = np.concatenate([[-ym[0]], ym, [2.0 + ym[0]]])
+
+    # modified wavenumbers (main.m:43-57)
+    k = np.arange(Nx)
+    k = np.where(k <= Nx // 2, k, k - Nx)
+    kxx = 2.0 * (np.cos(2 * np.pi * k / Nx) - 1.0) / dx ** 2
+    kz = np.arange(Nz)
+    kz = np.where(kz <= Nz // 2, kz, kz - Nz)
+    kzz = 2.0 * (np.cos(2 * np.pi * kz / Nz) - 1.0) / dz ** 2
+
+    # wall-normal Poisson operator DD (main.m:60-72)
+    n = Ny - 1
+    diag = np.zeros(n)
+    for j in range(n):
+        diag[j] = -1.0 / (y[j + 1] - y[j]) * (
+            1.0 / (yg[j + 2] - yg[j + 1]) + 1.0 / (yg[j + 1] - yg[j]))
+    lower = np.zeros(n - 1)
+    upper = np.zeros(n - 1)
+    for j in range(n - 1):
+        lower[j] = 1.0 / (y[j + 2] - y[j + 1]) / (yg[j + 2] - yg[j + 1])
+        upper[j] = 1.0 / (y[j + 1] - y[j]) / (yg[j + 2] - yg[j + 1])
+    diag[0] += 1.0 / (y[1] - y[0]) / (yg[1] - yg[0])
+    diag[-1] += 1.0 / (y[n] - y[n - 1]) / (yg[n + 1] - yg[n])
+    DD = np.diag(diag) + np.diag(lower, -1) + np.diag(upper, 1)
+
+    # DD = S^-1 Q diag(lam) Q^T S through a diagonal symmetrization S, so
+    # (DD + kk I)^-1 r = A [(B r) / (lam + kk)], A = S^-1 Q, B = Q^T S
+    s = np.ones(n)
+    for j in range(1, n):
+        s[j] = s[j - 1] * np.sqrt(upper[j - 1] / lower[j - 1])
+    s /= np.exp(np.mean(np.log(np.abs(s))))
+    off_sym = np.sqrt(lower * upper)
+    T = np.diag(diag) + np.diag(off_sym, -1) + np.diag(off_sym, 1)
+    lam, Q = np.linalg.eigh(T)
+    eig_A = Q / s[:, None]
+    eig_B = Q.T * s[None, :]
+    # regularized (0,0) mode (1.5*D[0,0], control_env.py:598-599),
+    # diagonally equilibrated for f32
+    D00 = DD.copy()
+    D00[0, 0] *= 1.5
+    s00 = 1.0 / np.sqrt(np.abs(np.diag(D00)))
+    Pinv00_eq = np.linalg.inv((s00[:, None] * D00) * s00[None, :])
+
+    # bordered (Schur) factors: the leading m = n-1 block in its own
+    # eigenbasis, the last row through a per-wavenumber Schur scalar
+    m = n - 1
+    lam1, Q1 = np.linalg.eigh(T[:m, :m])
+    eig_A1 = Q1 / s[:m, None]
+    eig_B1 = Q1.T * s[None, :m]
+    Nzr = Nz // 2 + 1
+    kkF = (kxx[:, None] + kzz[None, :Nzr]).reshape(1, -1)     # (1, F)
+    denom1 = lam1[:, None] + kkF                              # (m, F)
+    schur_g = upper[m - 1] * (eig_A1 @ (eig_B1[:, m - 1:m] / denom1))
+    schur_s = (diag[m] + kkF) - lower[m - 1] * schur_g[m - 1:m]
+    # the Neumann null mode sits in the Schur scalar at kk = 0: guard it
+    # (that column is solved through Pinv00_eq)
+    tiny = 1e-9 * np.max(np.abs(schur_s))
+    schur_s = np.where(np.abs(schur_s) < tiny, 1.0, schur_s)
+
+    if refine_steps is None:
+        refine_steps = 0 if dtype == torch.float64 else 1
+    arrays = dict(y=y, ym=ym, yg=yg, kxx=kxx, kzz=kzz, eig_A=eig_A,
+                  eig_B=eig_B, eig_lam=lam, Pinv00_eq=Pinv00_eq, s00=s00,
+                  DD_diag=diag, DD_lower=lower, DD_upper=upper,
+                  eig_A1=eig_A1, eig_B1=eig_B1, eig_lam1=lam1,
+                  schur_g=schur_g, schur_s=schur_s,
+                  dx=dx, dz=dz, dt=dt, nu=nu, Nx=Nx, Ny=Ny, Nz=Nz,
+                  refine_steps=refine_steps)
+    return grid_from_arrays(arrays, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# periodic shifts along x (dim -3) and z (dim -1)
+# ---------------------------------------------------------------------------
+
+def _xm(a):  # a[i-1] in x
+    return torch.roll(a, 1, dims=-3)
+
+
+def _xp(a):  # a[i+1] in x
+    return torch.roll(a, -1, dims=-3)
+
+
+def _zm(a):
+    return torch.roll(a, 1, dims=-1)
+
+
+def _zp(a):
+    return torch.roll(a, -1, dims=-1)
+
+
+def _pad_y(a):
+    """One zero row before and after along y (dim -2)."""
+    return F.pad(a, (0, 0, 1, 1))
+
+
+def _col(v):
+    """(R,) y-metric -> (R, 1) so it broadcasts over (..., R, Nz)."""
+    return v[:, None]
+
+
+def apply_boundary_condition(U, V, W, Vw1, Vw2):
+    """No-slip walls through antisymmetric ghost rows for U/W; wall-normal
+    actuation Vw1/Vw2 on the V wall faces (control_env.py:10-19)."""
+    U = torch.cat([-U[..., 1:2, :], U[..., 1:-1, :], -U[..., -2:-1, :]], -2)
+    W = torch.cat([-W[..., 1:2, :], W[..., 1:-1, :], -W[..., -2:-1, :]], -2)
+    V = torch.cat([Vw1.to(V.dtype)[..., None, :], V[..., 1:-1, :],
+                   Vw2.to(V.dtype)[..., None, :]], -2)
+    return U, V, W
+
+
+def compute_rhs(grid: ChannelGrid, U, V, W, dPdx):
+    """Momentum RHS Fu, Fv, Fw (convection + diffusion + forcing); the JAX
+    `_compute_rhs_unfused` term by term (control_env.py:429-530)."""
+    dx, dz, nu = grid.dx, grid.dz, grid.nu
+    y, ym, yg = grid.y, grid.ym, grid.yg
+    dyf = _col(y[1:] - y[:-1])       # (Ny-1, 1) face spacing
+    dyg = _col(yg[1:] - yg[:-1])     # (Ny, 1) centre spacing
+    dym = _col(ym[1:] - ym[:-1])     # (Ny-2, 1)
+
+    UU = (0.5 * (U + _xp(U))) ** 2
+    Fu = -(UU - _xm(UU)) / dx
+    UV = (0.5 * (V + _xm(V))) * (0.5 * (U[..., :-1, :] + U[..., 1:, :]))
+    Fu = Fu - _pad_y((UV[..., 1:, :] - UV[..., :-1, :]) / dyf)
+    UW = (0.5 * (W + _xm(W))) * (0.5 * (U + _zm(U)))
+    Fu = Fu - (_zp(UW) - UW) / dz
+    Fu = Fu + nu * (_xp(U) - 2 * U + _xm(U)) / dx ** 2
+    dU = (U[..., 1:, :] - U[..., :-1, :]) / dyg
+    Fu = Fu + _pad_y(nu * (dU[..., 1:, :] - dU[..., :-1, :]) / dyf)
+    Fu = Fu + nu * (_zp(U) - 2 * U + _zm(U)) / dz ** 2
+    Fu = Fu + dPdx / 2
+
+    Fv = -(_xp(UV) - UV) / dx
+    VV = (0.5 * (V[..., :-1, :] + V[..., 1:, :])) ** 2
+    Fv = Fv - _pad_y((VV[..., 1:, :] - VV[..., :-1, :]) / dym)
+    VW = (0.5 * (V + _zm(V))) * (0.5 * (W[..., :-1, :] + W[..., 1:, :]))
+    Fv = Fv - (_zp(VW) - VW) / dz
+    Fv = Fv + nu * (_xp(V) - 2 * V + _xm(V)) / dx ** 2
+    dV = (V[..., 1:, :] - V[..., :-1, :]) / dyf
+    Fv = Fv + _pad_y(nu * (dV[..., 1:, :] - dV[..., :-1, :]) / dym)
+    Fv = Fv + nu * (_zp(V) - 2 * V + _zm(V)) / dz ** 2
+
+    Fw = -(_xp(UW) - UW) / dx
+    Fw = Fw - _pad_y((VW[..., 1:, :] - VW[..., :-1, :]) / dyf)
+    WW = (0.5 * (W + _zp(W))) ** 2
+    Fw = Fw - (WW - _zm(WW)) / dz
+    Fw = Fw + nu * (_xp(W) - 2 * W + _xm(W)) / dx ** 2
+    dW = (W[..., 1:, :] - W[..., :-1, :]) / dyg
+    Fw = Fw + _pad_y(nu * (dW[..., 1:, :] - dW[..., :-1, :]) / dyf)
+    Fw = Fw + nu * (_zp(W) - 2 * W + _zm(W)) / dz ** 2
+    return Fu, Fv, Fw
+
+
+def divergence(grid: ChannelGrid, U, V, W):
+    """Cell-centred divergence, shape (Nx, Ny-1, Nz)
+    (control_env.py:186-194)."""
+    dyf = _col(grid.y[1:] - grid.y[:-1])
+    Ui = U[..., 1:-1, :]
+    Wi = W[..., 1:-1, :]
+    return ((_xp(Ui) - Ui) / grid.dx + (V[..., 1:, :] - V[..., :-1, :]) / dyf
+            + (_zp(Wi) - Wi) / grid.dz)
+
+
+def trap_weights(grid: ChannelGrid):
+    """Segment widths diff([0, ym, 2]) of the bulk-velocity trapezoid."""
+    ym = grid.ym
+    ys = torch.cat([ym.new_zeros(1), ym, ym.new_full((1,), 2.0)])
+    return ys[1:] - ys[:-1]                                     # (Ny,)
+
+
+def bulk_velocity(grid: ChannelGrid, profile):
+    """Trapezoid of [0, profile, 0] over [0, ym, 2], halved.  One fixed term
+    order, shared by every layout and by the CUDA step: the mass-flow
+    update amplifies this value's rounding by 1/dt."""
+    z = profile.new_zeros(profile.shape[:-1] + (1,))
+    vals = torch.cat([z, profile, z], -1)
+    terms = (vals[..., 1:] + vals[..., :-1]) * 0.5 * trap_weights(grid)
+    return terms.sum(-1) * 0.5
+
+
+def calculate_mean_u(grid: ChannelGrid, U):
+    """Bulk velocity of the mean profile (control_env.py:249-259)."""
+    return bulk_velocity(grid, U[..., 1:-1, :].mean(dim=(-3, -1)))
+
+
+def _pressure_rhs(grid: ChannelGrid, state: ChannelState):
+    Fu, Fv, Fw = compute_rhs(grid, state.U, state.V, state.W, state.dPdx)
+    return divergence(grid, Fu, Fv, Fw)
+
+
+def poisson_solve(grid: ChannelGrid, rhs):
+    """Solve (d_yy + kxx + kzz) p = rhs for rhs (Nx, Ny-1, Nz): the plain
+    torch solve for a CPU tensor, the CUDA kernel for a CUDA tensor."""
+    from . import poisson_cuda
+    if rhs.is_cuda:
+        return poisson_cuda.poisson_solve_kernel(grid, rhs)
+    return poisson_cuda.poisson_solve_plain(grid, rhs)
+
+
+def projection_step(grid: ChannelGrid, U, V, W):
+    """Pressure projection onto divergence-free fields
+    (control_env.py:582-613)."""
+    p = poisson_solve(grid, divergence(grid, U, V, W))
+    return pressure_correction(grid, U, V, W, p)
+
+
+def pressure_correction(grid: ChannelGrid, U, V, W, p):
+    """U, V, W -= grad p on the interior rows; the ghost and wall rows stay
+    as they are."""
+    dym = _col(grid.ym[1:] - grid.ym[:-1])
+    U = torch.cat([U[..., :1, :], U[..., 1:-1, :] - (p - _xm(p)) / grid.dx,
+                   U[..., -1:, :]], -2)
+    V = torch.cat([V[..., :1, :],
+                   V[..., 1:-1, :] - (p[..., 1:, :] - p[..., :-1, :]) / dym,
+                   V[..., -1:, :]], -2)
+    W = torch.cat([W[..., :1, :], W[..., 1:-1, :] - (p - _zm(p)) / grid.dz,
+                   W[..., -1:, :]], -2)
+    return U, V, W
+
+
+def compute_pressure(grid: ChannelGrid, state: ChannelState):
+    """Full pressure field from the RHS divergence
+    (control_env.py:196-229)."""
+    return poisson_solve(grid, _pressure_rhs(grid, state))
+
+
+def boundary_pressures(grid: ChannelGrid, state: ChannelState):
+    """(p1, p2) bottom/top wall pressures, each (Nx, Nz)
+    (control_env.py:423-427): the 4 wall-adjacent rows of the bordered
+    solve, through `rk3_cuda.boundary_pressures_k` (plain on the CPU, the
+    CUDA kernel pair on a card)."""
+    from . import rk3_cuda as rk
+    U, V, W = (rk.to_k(a) for a in (state.U, state.V, state.W))
+    p1, p2 = rk.boundary_pressures_k(grid, U, V, W, state.dPdx.reshape(1))
+    return (p1.reshape(grid.Nx, grid.Nz), p2.reshape(grid.Nx, grid.Nz))
+
+
+def init_state(grid: ChannelGrid, generator: Optional[torch.Generator] = None,
+               noise: float = 0.0, dPdx: float = DEFAULT_DPDX,
+               U=None, V=None, W=None, dtype=None) -> ChannelState:
+    """Initial condition: the laminar Poiseuille profile matching the
+    forcing (plus noise drawn from `generator`, made a valid state by the
+    BCs and a projection), or explicit fields."""
+    dtype = dtype or grid.dtype
+    dev = grid.device
+    Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
+    if U is None:
+        yg = grid.yg.double().cpu().numpy()
+        u_prof = dPdx / (2 * grid.nu) * yg * (2.0 - yg) / 2.0
+        U = torch.as_tensor(u_prof, dtype=dtype, device=dev)[None, :, None]
+        U = U.expand(Nx, Ny + 1, Nz).clone()
+        V = torch.zeros((Nx, Ny, Nz), dtype=dtype, device=dev)
+        W = torch.zeros((Nx, Ny + 1, Nz), dtype=dtype, device=dev)
+        if noise > 0 and generator is not None:
+            def draw(a):
+                return torch.randn(a.shape, generator=generator, dtype=dtype,
+                                   device=dev)
+            U = U + noise * draw(U)
+            V = V + noise * draw(V)
+            W = W + noise * draw(W)
+            zeros = torch.zeros((Nx, Nz), dtype=dtype, device=dev)
+            U, V, W = apply_boundary_condition(U, V, W, zeros, zeros)
+            U, V, W = projection_step(grid, U, V, W)
+            U, V, W = apply_boundary_condition(U, V, W, zeros, zeros)
+    else:
+        U, V, W = (torch.as_tensor(np.array(a)).to(dev, dtype)
+                   for a in (U, V, W))
+    return ChannelState(U=U, V=V, W=W,
+                        dPdx=torch.tensor(dPdx, dtype=dtype, device=dev),
+                        meanU0=calculate_mean_u(grid, U))
+
+
+# ---------------------------------------------------------------------------
+# scores / metrics (control_env.py:182-340)
+# ---------------------------------------------------------------------------
+
+def shear_stress(grid: ChannelGrid, state: ChannelState):
+    """|mean(-u_wall v_wall + nu dU/dy)| at the top wall
+    (control_env.py:292-303)."""
+    U, V = state.U, state.V
+    dudy = (U[:, -1, :] - U[:, -2, :]) / (grid.y[-1] - grid.y[-2])
+    tau = -U[:, -1, :] * V[:, -1, :] + grid.nu * dudy
+    return torch.abs(torch.mean(tau))
+
+
+def speed_norm(state: ChannelState):
+    return (torch.linalg.vector_norm(state.U)
+            + torch.linalg.vector_norm(state.V)
+            + torch.linalg.vector_norm(state.W))
+
+
+def dpdx_finite_difference(grid: ChannelGrid, p2):
+    """Mean |dp/dx| of the top-wall pressure p2 (Nx, Nz)
+    (control_env.py:240-247)."""
+    grad = (p2[1:, :] - p2[:-1, :]) / grid.dx
+    return torch.abs(torch.mean(torch.abs(grad), dim=1).sum()
+                     / (p2.shape[0] - 1))
+
+
+def reward_divergence(grid: ChannelGrid, state: ChannelState,
+                      bound: float = -100.0):
+    div = divergence(grid, state.U, state.V, state.W)
+    return torch.clamp(-torch.abs(torch.sum(div)), min=bound)
+
+
+def step_metrics(grid: ChannelGrid, state: ChannelState, p2):
+    """The drag-reduction scoreboard (control_env.py:651-661)."""
+    return {
+        "drag_reduction/1_shear_stress": shear_stress(grid, state),
+        "drag_reduction/2_1_mass_flow": calculate_mean_u(grid, state.U),
+        "drag_reduction/2_2_v_velocity": torch.mean(torch.abs(state.V)),
+        "drag_reduction/2_3_w_velocity": torch.mean(torch.abs(state.W)),
+        "drag_reduction/3_1_pressure_mean": torch.mean(p2),
+        "drag_reduction/3_2_dPdx_finite_difference":
+            dpdx_finite_difference(grid, p2),
+        "drag_reduction/3_3_dPdx_reverse_cal": state.dPdx,
+        "drag_reduction/4_1_-|divergence|": reward_divergence(grid, state),
+        "drag_reduction/4_4_speed_norm": speed_norm(state),
+    }
+
+
+def gt_control(state: ChannelState, detect_plane: int):
+    """Opposition control: negate V at the detection planes
+    (control_env.py:416-421).  Takes the (Nx, Ny, Nz) layout or the
+    kernel layout (rows = y, cols = x*Nz + z), whose planes come out
+    (C,)."""
+    V = state.V
+    if V.ndim == 2:
+        return -V[detect_plane], -V[V.shape[0] - detect_plane]
+    return -V[:, detect_plane, :], -V[:, -detect_plane, :]
+
+
+def rand_control(generator: torch.Generator, shape, scale: float = 0.01,
+                 dtype=torch.float32, device=None):
+    """Random actuation (matlab compute_opposition.m: 0.01*rand)."""
+    return scale * torch.rand(shape, generator=generator, dtype=dtype,
+                              device=device)

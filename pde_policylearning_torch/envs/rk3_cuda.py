@@ -1,0 +1,544 @@
+"""The closed-loop env step in the (y, x*z) kernel layout: plain torch
+versions and the CUDA kernels that replace the Pallas kernels of
+`pde_policylearning_tpu/envs/rk3_pallas.py` on the main path.
+
+Layout: rows = wall-normal y, columns = x*Nz + z; B environments pack
+env-major along the columns, (rows, B*C) with C = Nx*Nz, as
+`rk3_pallas.batch_states` packs them.
+
+Kernels (csrc/):
+  * `env_step_full_kb_kernel` (rk3_fullstep.cu) <- `_rk3_full_kernel`
+    ("kernel D"): three RK3 substages, each with the bordered eigen-solve
+    and one refinement pass in f32, the mass-flow correction, the new
+    dPdx and the wall pressures of the new state.
+  * `boundary_fwd_kernel` / `boundary_solve_kernel` (boundary.cu) <-
+    `_boundary_fwd_kernel` / `_boundary_solve_kernel`: the pressure RHS
+    and its forward transform, then the 4-row bordered solve and the
+    synthesis of (p1, p2).
+
+Each `*_kernel` takes float32 CUDA tensors only and raises otherwise; the
+dispatchers (`env_step_full_kb`, `boundary_pressures_k`) send a CPU tensor
+to the plain version and a CUDA tensor to the kernel.  The kernels'
+constants and scratch are built once per grid (and per B) and cached on
+`grid.cache`; calls that share a grid must run on one CUDA stream.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+import numpy as np
+import torch
+
+from ..native import cuda_build
+from . import channel_flow as cf
+from .poisson_cuda import check_cuda_f32, _kron_mats, poisson_consts
+
+# (c_cur, c_prev on F1): the RK3 coefficient triples [8/15],
+# [1/4, 5/12], [1/4, 0, 3/4] as (current, first-stage) pairs
+_RK3_STAGES = ((8 / 15, 0.0), (5 / 12, 1 / 4), (3 / 4, 1 / 4))
+
+
+# ---------------------------------------------------------------------------
+# layouts
+# ---------------------------------------------------------------------------
+
+def to_k(a):
+    """(Nx, R, Nz) -> (R, Nx*Nz)."""
+    Nx, R, Nz = a.shape
+    return a.permute(1, 0, 2).reshape(R, Nx * Nz)
+
+
+def from_k(a, Nx, Nz):
+    """(R, Nx*Nz) -> (Nx, R, Nz)."""
+    return a.reshape(a.shape[0], Nx, Nz).permute(1, 0, 2)
+
+
+def state_to_kstate(state):
+    """ChannelState (x, y, z) -> ChannelState with kernel-layout leaves."""
+    return state.replace(U=to_k(state.U).contiguous(),
+                         V=to_k(state.V).contiguous(),
+                         W=to_k(state.W).contiguous())
+
+
+def kstate_to_state(grid, kstate):
+    return kstate.replace(U=from_k(kstate.U, grid.Nx, grid.Nz).contiguous(),
+                          V=from_k(kstate.V, grid.Nx, grid.Nz).contiguous(),
+                          W=from_k(kstate.W, grid.Nx, grid.Nz).contiguous())
+
+
+def _unpack(a, grid, B):
+    """Packed (R, B*C) -> (B, Nx, R, Nz) view."""
+    return a.reshape(a.shape[0], B, grid.Nx, grid.Nz).permute(1, 2, 0, 3)
+
+
+def _pack(a):
+    """(B, Nx, R, Nz) -> packed (R, B*C)."""
+    B, Nx, R, Nz = a.shape
+    return a.permute(2, 0, 1, 3).reshape(R, B * Nx * Nz)
+
+
+def _spec(a):
+    """(B, Nx, R, Nz) -> per-env kernel layout (B, R, C)."""
+    B, Nx, R, Nz = a.shape
+    return a.permute(0, 2, 1, 3).reshape(B, R, Nx * Nz)
+
+
+# ---------------------------------------------------------------------------
+# constants (built once per grid)
+# ---------------------------------------------------------------------------
+
+def _row_consts(grid):
+    """y-metric vectors dyf (Ny-1,), dyg (Ny,), dym (Ny-2,)."""
+    y, ym, yg = grid.y, grid.ym, grid.yg
+    return y[1:] - y[:-1], yg[1:] - yg[:-1], ym[1:] - ym[:-1]
+
+
+def _kron_mats2(grid):
+    """T2 = [TR | TI] (C, 2F) and Ti2 = [TiR ; -TiI] (2F, C) in the grid's
+    dtype and device: the forward transform and the real-part inverse
+    synthesis are one product each.  Float32 grids round each factor to
+    float32 first, as the reference kernels' constants are."""
+    TR, TI, TiR, TiI = _kron_mats(grid.Nx, grid.Nz)
+    if grid.dtype == torch.float32:
+        TR, TI, TiR, TiI = (a.astype(np.float32) for a in (TR, TI, TiR, TiI))
+    return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(grid.device,
+                                                             grid.dtype)
+                 for a in (np.concatenate([TR, TI], axis=1),
+                           np.concatenate([TiR, -TiI], axis=0)))
+
+
+def _solve_consts(grid):
+    """Bordered-solve constants in the re|im layout: every (*, F)
+    per-wavenumber array doubled to (*, 2F).  Returns (kk2, denom1_2, g2,
+    ss2, dlm, dl, du, dd0h)."""
+    Nzr = grid.Nz // 2 + 1
+    F = grid.Nx * Nzr
+    n = grid.Ny - 1
+    kk = (grid.kxx[:, None] + grid.kzz[None, :Nzr]).reshape(1, F)
+    denom1 = grid.eig_lam1[:, None] + kk
+    denom1 = torch.where(denom1.abs() < 1e-12, torch.ones_like(denom1),
+                         denom1)
+
+    def double(a):
+        return torch.cat([a, a], 1).contiguous()
+
+    zero = grid.DD_lower.new_zeros(1)
+    dl = torch.cat([zero, grid.DD_lower])
+    du = torch.cat([grid.DD_upper, zero])
+    dlm = grid.DD_lower[n - 2]
+    dd0h = 0.5 * grid.DD_diag[0]
+    return (double(kk)[0], double(denom1), double(grid.schur_g),
+            double(grid.schur_s.reshape(1, F))[0], dlm, dl, du, dd0h)
+
+
+def _boundary_consts(grid):
+    """(A13, g3_2): rows [0, 1, m-1] of the bordered eigenbasis and of the
+    Schur coupling, the rows the wall-pressure synthesis needs."""
+    m = grid.Ny - 2
+    rows = [0, 1, m - 1]
+    g3 = grid.schur_g[rows]
+    return grid.eig_A1[rows].contiguous(), torch.cat([g3, g3], 1).contiguous()
+
+
+@dataclass
+class SolveConsts:
+    T2: torch.Tensor
+    Ti2: torch.Tensor
+    A1: torch.Tensor
+    B1: torch.Tensor
+    denom1: torch.Tensor   # (m, 2F)
+    g: torch.Tensor        # (m, 2F)
+    ss: torch.Tensor       # (2F,)
+    kk: torch.Tensor       # (2F,)
+    dd: torch.Tensor       # (n,)
+    dl: torch.Tensor       # (n,), row 0 zero
+    du: torch.Tensor       # (n,), row n-1 zero
+    dlm: torch.Tensor      # 0-d: DD[m, m-1]
+    dd0h: torch.Tensor     # 0-d: DD[0, 0] / 2
+    A13: torch.Tensor      # (3, m)
+    g3: torch.Tensor       # (3, 2F)
+    Pinv00: torch.Tensor
+    s00: torch.Tensor
+    dyf: torch.Tensor
+    dyg: torch.Tensor
+    dym: torch.Tensor
+    trapw: torch.Tensor
+
+
+def solve_consts(grid) -> SolveConsts:
+    """All constants of the kernel-layout step, once per grid."""
+    key = "solve"
+    if key not in grid.cache:
+        T2, Ti2 = _kron_mats2(grid)
+        kk2, denom1, g2, ss2, dlm, dl, du, dd0h = _solve_consts(grid)
+        A13, g3 = _boundary_consts(grid)
+        dyf, dyg, dym = _row_consts(grid)
+        grid.cache[key] = SolveConsts(
+            T2=T2, Ti2=Ti2, A1=grid.eig_A1.contiguous(),
+            B1=grid.eig_B1.contiguous(), denom1=denom1, g=g2, ss=ss2, kk=kk2,
+            dd=grid.DD_diag, dl=dl, du=du, dlm=dlm, dd0h=dd0h, A13=A13,
+            g3=g3, Pinv00=grid.Pinv00_eq.contiguous(), s00=grid.s00,
+            dyf=dyf.contiguous(), dyg=dyg.contiguous(), dym=dym.contiguous(),
+            trapw=cf.trap_weights(grid).contiguous())
+    return grid.cache[key]
+
+
+# ---------------------------------------------------------------------------
+# metrics on kernel-layout state (plain torch glue, no host sync)
+# ---------------------------------------------------------------------------
+
+def divergence_k(grid, U, V, W):
+    """channel_flow.divergence on kernel-layout fields -> (Ny-1, C)."""
+    Nx, Nz = grid.Nx, grid.Nz
+    return to_k(cf.divergence(grid, from_k(U, Nx, Nz), from_k(V, Nx, Nz),
+                              from_k(W, Nx, Nz)))
+
+
+def mean_u_k(grid, U):
+    """channel_flow.calculate_mean_u on a kernel-layout U."""
+    return cf.bulk_velocity(grid, U[1:-1].mean(dim=1))
+
+
+def step_metrics_k(grid, state, p2):
+    """channel_flow.step_metrics with kernel-layout state; p2 (Nx, Nz)."""
+    U, V, W = state.U, state.V, state.W
+    dudy = (U[-1] - U[-2]) / (grid.y[-1] - grid.y[-2])
+    shear = torch.abs(torch.mean(-U[-1] * V[-1] + grid.nu * dudy))
+    div = divergence_k(grid, U, V, W)
+    return {
+        "drag_reduction/1_shear_stress": shear,
+        "drag_reduction/2_1_mass_flow": mean_u_k(grid, U),
+        "drag_reduction/2_2_v_velocity": torch.mean(torch.abs(V)),
+        "drag_reduction/2_3_w_velocity": torch.mean(torch.abs(W)),
+        "drag_reduction/3_1_pressure_mean": torch.mean(p2),
+        "drag_reduction/3_2_dPdx_finite_difference":
+            cf.dpdx_finite_difference(grid, p2),
+        "drag_reduction/3_3_dPdx_reverse_cal": state.dPdx,
+        "drag_reduction/4_1_-|divergence|":
+            torch.clamp(-torch.abs(torch.sum(div)), min=-100.0),
+        "drag_reduction/4_4_speed_norm":
+            torch.linalg.vector_norm(U) + torch.linalg.vector_norm(V)
+            + torch.linalg.vector_norm(W),
+    }
+
+
+# ---------------------------------------------------------------------------
+# plain versions (any float dtype; the references of the kernels)
+# ---------------------------------------------------------------------------
+
+def _bordered_solve_plain(c: SolveConsts, r):
+    """(DD + kk I)^-1 r for r (B, n, 2F): the leading m = n-1 block in its
+    own eigenbasis, the last row by Schur, and the (0,0) columns (0 = re,
+    F = im) through the equilibrated regularized solve."""
+    n = r.shape[1]
+    m = n - 1
+    F = r.shape[2] // 2
+    y = c.A1 @ ((c.B1 @ r[:, :m]) / c.denom1)
+    P_last = (r[:, m:] - c.dlm * y[:, m - 1:m]) / c.ss
+    P = torch.cat([y - c.g * P_last, P_last], 1)
+    s = c.s00[:, None]
+    p00 = s * (c.Pinv00 @ (s * r[:, :, [0, F]]))              # (B, n, 2)
+    P[:, :, 0] = p00[..., 0]
+    P[:, :, F] = p00[..., 1]
+    return P
+
+
+def _refine_residual_plain(c: SolveConsts, t, P):
+    """t - (DD + kk I) P - the (0,0,0) regularization term."""
+    zero = torch.zeros_like(P[:, :1])
+    app = (c.dd[:, None] + c.kk) * P
+    app = app + c.dl[:, None] * torch.cat([zero, P[:, :-1]], 1)
+    app = app + c.du[:, None] * torch.cat([P[:, 1:], zero], 1)
+    r = t - app
+    F = P.shape[2] // 2
+    r[:, 0, [0, F]] -= c.dd0h * P[:, 0, [0, F]]
+    return r
+
+
+def _poisson_bordered_plain(grid, c: SolveConsts, Y):
+    """Kernel D's projection solve of Y (B, Nx, n, Nz) -> p, same layout."""
+    t = _spec(Y) @ c.T2                                       # (B, n, 2F)
+    P = _bordered_solve_plain(c, t)
+    for _ in range(grid.refine_steps):
+        P = P + _bordered_solve_plain(c, _refine_residual_plain(c, t, P))
+    p = P @ c.Ti2                                             # (B, n, C)
+    B, n = p.shape[:2]
+    return p.reshape(B, n, grid.Nx, grid.Nz).permute(0, 2, 1, 3)
+
+
+def boundary_fwd_plain(grid, U, V, W, dPdx):
+    """Pressure RHS of packed state (rows, B*C) and its forward transform
+    -> t (B, n, 2F)."""
+    B = dPdx.shape[0]
+    c = solve_consts(grid)
+    Fu, Fv, Fw = cf.compute_rhs(grid, _unpack(U, grid, B),
+                                _unpack(V, grid, B), _unpack(W, grid, B),
+                                dPdx.reshape(B, 1, 1, 1))
+    return _spec(cf.divergence(grid, Fu, Fv, Fw)) @ c.T2
+
+
+def boundary_solve_plain(grid, t):
+    """4-row bordered solve of t (B, n, 2F) and the synthesis of the wall
+    rows -> p (2, B*C) = (p1; p2)."""
+    c = solve_consts(grid)
+    B, n, F2 = t.shape
+    m = n - 1
+    F = F2 // 2
+    u = (c.B1 @ t[:, :m]) / c.denom1
+    y3 = c.A13 @ u                                            # (B, 3, 2F)
+    P_last = (t[:, m:] - c.dlm * y3[:, 2:3]) / c.ss
+    P4 = torch.cat([y3 - c.g3 * P_last, P_last], 1)      # rows 0,1,n-2,n-1
+    s = c.s00[:, None]
+    full00 = s * (c.Pinv00 @ (s * t[:, :, 0:1]))              # (B, n, 1)
+    P4[:, :, 0] = full00[:, [0, 1, n - 2, n - 1], 0]
+    P4[:, :, F] = 0.0                     # the imaginary (0,0) column
+    P4 = P4 @ c.Ti2                                           # (B, 4, C)
+    p1 = -0.5 * (P4[:, 0] + P4[:, 1])
+    p2 = -0.5 * (P4[:, 3] + P4[:, 2])
+    return torch.stack([p1, p2]).reshape(2, -1)
+
+
+def _mass_flow(grid, U, meanU0, dPdx):
+    """(d_new / 2, new dPdx) of the mass-flow correction for U (B, Nx, R,
+    Nz), both in U's dtype.
+
+    d_new = 2 (meanU0 - meanU_now) is a small difference amplified by 1/dt:
+    one float32 ulp of the bulk velocity moves dPdx by several percent.  So
+    the row means, the trapezoid and d_new are taken in float64, in one
+    fixed term order, here and in the kernel alike."""
+    profile = U[..., 1:-1, :].double().mean(dim=(-3, -1))       # (B, Ny-1)
+    z = profile.new_zeros(profile.shape[:-1] + (1,))
+    vals = torch.cat([z, profile, z], -1)
+    w = cf.trap_weights(grid).double()
+    mean_now = ((vals[..., 1:] + vals[..., :-1]) * 0.5 * w).sum(-1) * 0.5
+    d_new = 2.0 * (meanU0.double() - mean_now)
+    return ((0.5 * d_new).to(U.dtype),
+            (0.5 * (dPdx.double() + d_new / grid.dt)).to(U.dtype))
+
+
+def env_step_full_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """Kernel D's function in plain torch: one env step for B packed envs.
+
+    U/W: (Ny+1, B*C), V: (Ny, B*C), dPdx/meanU0: (B,), op1/op2: (1, B*C).
+    Returns (U, V, W, dPdx' (B,), p (2, B*C))."""
+    c = solve_consts(grid)
+    dt = grid.dt
+    U0, V0, W0 = (_unpack(a, grid, B) for a in (U, V, W))
+    o1 = op1.reshape(B, grid.Nx, grid.Nz)
+    o2 = op2.reshape(B, grid.Nx, grid.Nz)
+    dP = dPdx.reshape(B, 1, 1, 1)
+    U, V, W = U0, V0, W0
+    for i, (c_cur, c_prev) in enumerate(_RK3_STAGES):
+        Fu, Fv, Fw = cf.compute_rhs(grid, U, V, W, dP)
+        if i == 0:
+            F1u, F1v, F1w = Fu, Fv, Fw
+        Un = U0 + dt * c_cur * Fu
+        Vn = V0 + dt * c_cur * Fv
+        Wn = W0 + dt * c_cur * Fw
+        if c_prev:
+            Un = Un + dt * c_prev * F1u
+            Vn = Vn + dt * c_prev * F1v
+            Wn = Wn + dt * c_prev * F1w
+        Un, Vn, Wn = cf.apply_boundary_condition(Un, Vn, Wn, o1, o2)
+        p = _poisson_bordered_plain(grid, c, cf.divergence(grid, Un, Vn, Wn))
+        U, V, W = cf.pressure_correction(grid, Un, Vn, Wn, p)
+        U, V, W = cf.apply_boundary_condition(U, V, W, o1, o2)
+
+    # mass-flow correction on the interior rows (ghost rows untouched)
+    half_d, dPdx_new = _mass_flow(grid, U, meanU0, dPdx)
+    U = torch.cat([U[:, :, :1], U[:, :, 1:-1] + half_d[:, None, None, None],
+                   U[:, :, -1:]], 2)
+    U, V, W = _pack(U), _pack(V), _pack(W)
+    p = boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W,
+                                                      dPdx_new))
+    return U, V, W, dPdx_new, p
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_SPLIT_SLICES = 8   # kMaxSplit in csrc/common.cuh
+
+
+@dataclass
+class KernelArgs:
+    """The C structs a kernel call passes, and the tensors they point at
+    (held here so the pointers stay valid)."""
+    dims: cuda_build.Dims
+    ops: cuda_build.Ops
+    work: cuda_build.Work
+    tensors: dict
+
+    @property
+    def dims_ref(self):
+        return ctypes.byref(self.dims)
+
+    @property
+    def ops_ref(self):
+        return ctypes.byref(self.ops)
+
+    @property
+    def work_ref(self):
+        return ctypes.byref(self.work)
+
+
+def kernel_args(grid, B: int) -> KernelArgs:
+    """Constants and the scratch workspace for B packed envs, built once
+    per (grid, B) with `torch.empty`; the kernels allocate nothing."""
+    key = ("kernel_args", B)
+    if key in grid.cache:
+        return grid.cache[key]
+    if grid.device.type != "cuda" or grid.dtype != torch.float32:
+        raise ValueError("the CUDA kernels need a float32 grid on a CUDA "
+                         f"device, got {grid.dtype} on {grid.device}")
+    c = solve_consts(grid)
+    pc = poisson_consts(grid)
+    Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
+    C, n = Nx * Nz, Ny - 1
+    F2 = 2 * Nx * (Nz // 2 + 1)
+    dims = cuda_build.Dims(
+        B=B, Nx=Nx, Ny=Ny, Nz=Nz, refine_steps=grid.refine_steps,
+        nu=grid.nu, dx=grid.dx, dz=grid.dz, dt=grid.dt,
+        dlm=float(c.dlm), dd0h=float(c.dd0h))
+    ops_t = {k: v.contiguous() for k, v in dict(
+        dyf=c.dyf, dyg=c.dyg, dym=c.dym, trapw=c.trapw, T2=c.T2, Ti2=c.Ti2,
+        A1=c.A1, B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
+        A13=c.A13, g3=c.g3, A=pc["A"], Bf=pc["Bf"], denom=pc["denom"],
+        Pinv00=c.Pinv00, s00=c.s00, dd=c.dd, dl=c.dl, du=c.du).items()}
+    ops = cuda_build.Ops(**{k: v.data_ptr() for k, v in ops_t.items()})
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=grid.device)
+
+    work_t = dict(
+        Fu=empty(Ny + 1, B * C), Fv=empty(Ny, B * C), Fw=empty(Ny + 1, B * C),
+        F1u=empty(Ny + 1, B * C), F1v=empty(Ny, B * C),
+        F1w=empty(Ny + 1, B * C),
+        Un=empty(Ny + 1, B * C), Vn=empty(Ny, B * C), Wn=empty(Ny + 1, B * C),
+        Y=empty(n, B * C), t=empty(B, n, F2), r=empty(B, n, F2),
+        u=empty(B, n, F2), y=empty(B, n, F2), P=empty(B, n, F2),
+        p=empty(n, B * C), p00=empty(B, n, 2), q=empty(B, 2, F2),
+        dnew=empty(B),
+        # split-K partial products of the solve GEMMs (csrc/common.cuh)
+        part=empty(_SPLIT_SLICES * n * max(F2, C)))
+    work = cuda_build.Work(**{k: v.data_ptr() for k, v in work_t.items()},
+                           part_cap=work_t["part"].numel())
+    args = KernelArgs(dims, ops, work, {**ops_t, **work_t})
+    grid.cache[key] = args
+    return args
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def env_step_full_kb_kernel(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """Kernel D on the card (csrc/rk3_fullstep.cu); same contract as
+    `env_step_full_kb_plain`, float32 CUDA tensors only."""
+    Ny, C = grid.Ny, grid.Nx * grid.Nz
+    for name, a, shape in (("U", U, (Ny + 1, B * C)), ("V", V, (Ny, B * C)),
+                           ("W", W, (Ny + 1, B * C)), ("dPdx", dPdx, (B,)),
+                           ("meanU0", meanU0, (B,)),
+                           ("op1", op1, (1, B * C)), ("op2", op2, (1, B * C))):
+        check_cuda_f32(name, a, shape)
+    args = kernel_args(grid, B)
+    Uo, Vo, Wo = torch.empty_like(U), torch.empty_like(V), torch.empty_like(W)
+    dPo = torch.empty_like(dPdx)
+    p = torch.empty((2, B * C), dtype=torch.float32, device=U.device)
+    err = cuda_build.load().pde_rk3_fullstep(
+        args.dims_ref, args.ops_ref, args.work_ref,
+        U.data_ptr(), V.data_ptr(), W.data_ptr(), op1.data_ptr(),
+        op2.data_ptr(), dPdx.data_ptr(), meanU0.data_ptr(),
+        Uo.data_ptr(), Vo.data_ptr(), Wo.data_ptr(), dPo.data_ptr(),
+        p.data_ptr(), _stream(U))
+    cuda_build.check(err, "pde_rk3_fullstep")
+    env_step_full_kb_kernel.launches += 1
+    return Uo, Vo, Wo, dPo, p
+
+
+env_step_full_kb_kernel.launches = 0
+
+_FWD, _SOLVE = 1, 2
+
+
+def boundary_fwd_kernel(grid, U, V, W, dPdx):
+    """Pressure RHS + forward transform on the card (csrc/boundary.cu,
+    first phase) -> t (B, n, 2F)."""
+    B = dPdx.shape[0]
+    Ny, C = grid.Ny, grid.Nx * grid.Nz
+    for name, a, shape in (("U", U, (Ny + 1, B * C)), ("V", V, (Ny, B * C)),
+                           ("W", W, (Ny + 1, B * C)), ("dPdx", dPdx, (B,))):
+        check_cuda_f32(name, a, shape)
+    args = kernel_args(grid, B)
+    t = torch.empty((B, Ny - 1, 2 * grid.Nx * (grid.Nz // 2 + 1)),
+                    dtype=torch.float32, device=U.device)
+    err = cuda_build.load().pde_boundary_pressures(
+        args.dims_ref, args.ops_ref, args.work_ref, _FWD, U.data_ptr(),
+        V.data_ptr(), W.data_ptr(), dPdx.data_ptr(), t.data_ptr(), None,
+        _stream(U))
+    cuda_build.check(err, "pde_boundary_pressures (forward)")
+    boundary_fwd_kernel.launches += 1
+    return t
+
+
+boundary_fwd_kernel.launches = 0
+
+
+def boundary_solve_kernel(grid, t):
+    """4-row bordered solve + synthesis on the card (csrc/boundary.cu,
+    second phase) -> p (2, B*C)."""
+    B = t.shape[0]
+    check_cuda_f32("t", t, (B, grid.Ny - 1,
+                             2 * grid.Nx * (grid.Nz // 2 + 1)))
+    args = kernel_args(grid, B)
+    p = torch.empty((2, B * grid.Nx * grid.Nz), dtype=torch.float32,
+                    device=t.device)
+    err = cuda_build.load().pde_boundary_pressures(
+        args.dims_ref, args.ops_ref, args.work_ref, _SOLVE, None, None, None,
+        None, t.data_ptr(), p.data_ptr(), _stream(t))
+    cuda_build.check(err, "pde_boundary_pressures (solve)")
+    boundary_solve_kernel.launches += 1
+    return p
+
+
+boundary_solve_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatchers: CPU tensor -> plain, CUDA tensor -> kernel
+# ---------------------------------------------------------------------------
+
+def env_step_full_kb(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """One env step for B packed envs (see `env_step_full_kb_plain`)."""
+    step = env_step_full_kb_kernel if U.is_cuda else env_step_full_kb_plain
+    return step(grid, B, U, V, W, dPdx, meanU0, op1, op2)
+
+
+def boundary_pressures_k(grid, U, V, W, dPdx):
+    """(p1, p2) rows, each (1, B*C), of packed kernel-layout state;
+    dPdx (B,)."""
+    if U.is_cuda:
+        p = boundary_solve_kernel(grid, boundary_fwd_kernel(grid, U, V, W,
+                                                            dPdx))
+    else:
+        p = boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W,
+                                                          dPdx))
+    return p[0:1], p[1:2]
+
+
+def env_step_full_k(grid, kstate, opV1, opV2):
+    """Single-env step on a kernel-layout ChannelState: advance, wall
+    pressures and scoreboard.  opV1/opV2 arrive (Nx, Nz) or (C,) from the
+    policies.  Returns (kstate', p2 (Nx, Nz), info)."""
+    C = grid.Nx * grid.Nz
+    dtype = kstate.U.dtype
+    op1 = opV1.reshape(1, C).to(dtype).contiguous()
+    op2 = opV2.reshape(1, C).to(dtype).contiguous()
+    U, V, W, dPdx, p = env_step_full_kb(
+        grid, 1, kstate.U, kstate.V, kstate.W, kstate.dPdx.reshape(1),
+        kstate.meanU0.reshape(1), op1, op2)
+    kstate = kstate.replace(U=U, V=V, W=W,
+                            dPdx=dPdx.reshape(kstate.dPdx.shape))
+    p2 = p[1].reshape(grid.Nx, grid.Nz)
+    return kstate, p2, step_metrics_k(grid, kstate, p2)

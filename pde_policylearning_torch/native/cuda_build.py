@@ -1,0 +1,139 @@
+"""Build `csrc/*.cu` with nvcc into one shared library and load it with
+ctypes.
+
+The library is built at first use into `build/kernels/` at the repository
+root, named by a hash of the sources and flags, so an edit to any source
+triggers a rebuild and an unchanged tree reuses the file.  There is no
+fallback: without nvcc, loading raises.
+
+Every C entry returns its `cudaError_t` (0 on success); `check` raises on
+anything else.  Pointers and the stream pass as `c_void_p`, the structs
+below by pointer.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+
+
+class Dims(ctypes.Structure):
+    """Mirror of `struct Dims` in csrc/common.cuh."""
+    _fields_ = [("B", ctypes.c_int), ("Nx", ctypes.c_int),
+                ("Ny", ctypes.c_int), ("Nz", ctypes.c_int),
+                ("refine_steps", ctypes.c_int),
+                ("nu", ctypes.c_float), ("dx", ctypes.c_float),
+                ("dz", ctypes.c_float), ("dt", ctypes.c_float),
+                ("dlm", ctypes.c_float), ("dd0h", ctypes.c_float)]
+
+
+class Ops(ctypes.Structure):
+    """Mirror of `struct Ops`: device pointers to the cached constants."""
+    _fields_ = [(k, _P) for k in (
+        "dyf", "dyg", "dym", "trapw", "T2", "Ti2", "A1", "B1", "denom1", "g",
+        "ss", "kk", "A13", "g3", "A", "Bf", "denom", "Pinv00", "s00", "dd",
+        "dl", "du")]
+
+
+class Work(ctypes.Structure):
+    """Mirror of `struct Work`: device pointers to the scratch workspace and
+    the size (in floats) of its split-product buffer `part`."""
+    _fields_ = [(k, _P) for k in (
+        "Fu", "Fv", "Fw", "F1u", "F1v", "F1w", "Un", "Vn", "Wn", "Y", "t",
+        "r", "u", "y", "P", "p", "p00", "q", "dnew", "part")] + [
+        ("part_cap", ctypes.c_longlong)]
+
+
+_ENTRIES = {
+    # dims, ops, work, Y, out, stream
+    "pde_poisson_solve": [_P, _P, _P, _P, _P, _P],
+    # dims, ops, work, phases, U, V, W, dPdx, t, p, stream
+    "pde_boundary_pressures": [_P, _P, _P, ctypes.c_int] + [_P] * 7,
+    # dims, ops, work, U, V, W, op1, op2, dPdx, meanU0,
+    # Uo, Vo, Wo, dPdx_out, p, stream
+    "pde_rk3_fullstep": [_P] * 16,
+}
+
+_lib = None
+build_log = ""
+build_seconds = 0.0
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists(NVCC_DEFAULT):
+        nvcc = NVCC_DEFAULT
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of pde_policylearning_torch "
+            "are built from csrc/ at first use and need the CUDA toolkit "
+            "(nvcc on PATH or /usr/local/cuda/bin/nvcc)")
+    return nvcc
+
+
+def library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libpde_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for this source tree
+    exists; returns its path."""
+    global build_log, build_seconds
+    import time
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def load():
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _ENTRIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.pde_error_string.argtypes = [ctypes.c_int]
+        lib.pde_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error."""
+    if err != 0:
+        msg = load().pde_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
