@@ -10,17 +10,31 @@ result):
      card, at the main path's shapes (32x130x32, the packaged Re_tau~180
      snapshot, float32, TF32 off), with its error and both times (CUDA
      events, median of several calls);
+     Kernels A and B (the staged step, each substage) and the mass-flow
+     kernels at B = 1 and B = 8, the whole staged step and kernel D at
+     B = 8, and kernel C (the batched wall pressures, B = 8), from the
+     developed states of 50 kernel-D steps; the staged step against
+     kernel D over three steps; the gradient through projection_step on
+     the card against the plain version's; env_step with a state that
+     needs a gradient, and the rollouts refusing one;
   4. the main path: NSControlEnv(32, 130, 32, noise 0.05, seed 0) with the
      opposition policy, run_closed_loop for 2000 steps once to warm up and
-     three timed runs; the kernels' launch counts over exactly that run.
+     three timed runs; the kernels' launch counts over exactly that run;
+  5. the data-collection path: batched_rollout of 8 envs for 500 `gt`
+     steps through kernel D and through the staged kernels
+     (PDE_RK3_FULLSTEP=0), one warm-up and three timed runs each, the
+     staged kernels' launch counts over exactly the last staged run; then
+     generate_channel_dataset for 20 steps into a temporary directory.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -29,7 +43,7 @@ def log(msg):
 
 
 def rel(a, b):
-    a, b = a.double(), b.double()
+    a, b = a.detach().double(), b.detach().double()
     return float((a - b).norm() / b.norm())
 
 
@@ -74,6 +88,7 @@ def main() -> int:
 
     from pde_policylearning_torch.control import make_policy, run_closed_loop
     from pde_policylearning_torch.control.loop import SCOREBOARD_KEYS
+    from pde_policylearning_torch.data import generate_channel_dataset
     from pde_policylearning_torch.envs import NSControlEnv
     from pde_policylearning_torch.envs import channel_flow as cf
     from pde_policylearning_torch.envs import poisson_cuda as pc
@@ -119,6 +134,7 @@ def main() -> int:
     report = {}
 
     def entry(name, source, replaces, out, ref, fn_kernel, fn_plain):
+        out, ref = zip(*((a, b) for a, b in zip(out, ref) if b is not None))
         report[name] = dict(
             name=name, route="cuda",
             source=f"pde_policylearning_torch/csrc/{source}",
@@ -174,18 +190,20 @@ def main() -> int:
                 torch.cat([o[1] for o in ops])[None].contiguous())
 
     def run_steps(step, st, n):
-        rows = []
+        rows, states = [], []
         for _ in range(n):
             U, V, W, dPdx, p = step(*step_args([st]))
             st = st.replace(U=U, V=V, W=W, dPdx=dPdx.reshape(()))
+            states.append(st)
             p2 = p[1].reshape(Nx, Nz)
             info = rk.step_metrics_k(grid, st, p2)
             rows.append(torch.stack([info[k] for k in SCOREBOARD_KEYS]))
-        return st, p2, torch.stack(rows, 1)
+        return st, p2, torch.stack(rows, 1), states
 
     log("kernel D, 50 gt steps from the snapshot")
-    st_k, p2_k, s_k = run_steps(rk.env_step_full_kb_kernel, kst, 50)
-    st_p, p2_p, s_p = run_steps(rk.env_step_full_kb_plain, kst, 50)
+    st_k, p2_k, s_k, _ = run_steps(rk.env_step_full_kb_kernel, kst, 50)
+    st_p, p2_p, s_p, states_p = run_steps(rk.env_step_full_kb_plain, kst,
+                                          50)
     for name in ("U", "V", "W"):
         check(f"50-step {name}", rel(getattr(st_k, name),
                                      getattr(st_p, name)), 1e-5)
@@ -244,8 +262,141 @@ def main() -> int:
           out1, ref1, lambda: rk.env_step_full_kb_kernel(*args1),
           lambda: rk.env_step_full_kb_plain(*args1))
 
+    def check_stages(args, tag):
+        """Kernels A and B on each substage and the mass-flow kernels
+        against their plain versions, each stage fed the plain outputs of
+        the stage before; returns stage 1's (args, kernel, plain) of A and
+        of B."""
+        _, B, U0, V0, W0, dP, mU, op1, op2 = args
+        Uc, Vc, Wc, F1 = U0, V0, W0, None
+        for i, (c_cur, c_prev) in enumerate(rk._RK3_STAGES):
+            a_args = (grid, B, Uc, Vc, Wc, U0, V0, W0, F1, op1, op2, dP,
+                      c_cur, c_prev, i == 0)
+            out_a = rk.substage_kernel(*a_args)
+            ref_a = rk.substage_plain(*a_args)
+            for nm, o, r in zip(("Un", "Vn", "Wn", "div", "Fu", "Fv", "Fw"),
+                                out_a, ref_a):
+                if r is not None:
+                    check(f"{tag} A stage {i + 1} {nm}", rel(o, r), 1e-6)
+            b_args = (grid, B, ref_a[3], *ref_a[:3], op1, op2)
+            out_b = rk.solve_correct_kernel(*b_args)
+            ref_b = rk.solve_correct_plain(*b_args)
+            for nm, o, r, tol in zip("UVW", out_b, ref_b, (2e-6, 2e-5, 2e-5)):
+                check(f"{tag} B stage {i + 1} {nm}", rel(o, r), tol)
+            if i == 0:
+                F1 = ref_a[4:]
+                first = (a_args, out_a, ref_a), (b_args, out_b, ref_b)
+            Uc, Vc, Wc = ref_b
+        U_mk, dP_mk = rk.mass_flow_kernel(grid, B, Uc.clone(), mU, dP)
+        U_mp, dP_mp = rk.mass_flow_plain(grid, B, Uc, mU, dP)
+        check(f"{tag} mass flow U", rel(U_mk, U_mp), 1e-7)
+        check(f"{tag} mass flow dPdx", rel(dP_mk, dP_mp), 1e-6)
+        return first
+
+    def check_steps(args, tag):
+        """The staged step and kernel D against their plain versions, with
+        kernel D's one-step bounds."""
+        for nm, step, plain in (
+                ("staged step", rk.rk3_step_kb, rk.rk3_step_kb_plain),
+                ("kernel D", rk.env_step_full_kb_kernel,
+                 rk.env_step_full_kb_plain)):
+            out, ref = step(*args), plain(*args)
+            pairs = [("U", 2e-6), ("V", 2e-5), ("W", 2e-5), ("dPdx", 5e-3)]
+            for j, (q, tol) in enumerate(pairs):
+                check(f"{tag} {nm} {q}", rel(out[j], ref[j]), tol)
+            if len(out) == 5:
+                check(f"{tag} {nm} p2", rel(out[4][1], ref[4][1]), 2e-5)
+
+    log("kernels A and B, each substage, from the state after 50 steps")
+    a0, b0 = check_stages(args1, "B=1")
+    entry("rk3_substage", "rk3_staged.cu", "rk3_pallas.py:199", a0[1],
+          a0[2], lambda: rk.substage_kernel(*a0[0]),
+          lambda: rk.substage_plain(*a0[0]))
+    entry("rk3_solve_correct", "rk3_staged.cu", "rk3_pallas.py:319", b0[1],
+          b0[2], lambda: rk.solve_correct_kernel(*b0[0]),
+          lambda: rk.solve_correct_plain(*b0[0]))
+
+    # phase 5 runs every kernel at B = 8 (packed columns, per-env dPdx and
+    # mass flow); hold each one there too
+    log("B=8 (the last 8 states of the 50-step run): kernels A, B, the "
+        "mass flow, the staged step, kernel D, kernel C")
+    args8 = step_args(states_p[-8:])
+    check_stages(args8, "B=8")
+    check_steps(args8, "B=8")
+    _, B8, U8, V8, W8, dP8, _, _, _ = args8
+    p_k = rk.boundary_kernel(grid, U8, V8, W8, dP8)
+    p_p = rk.boundary_solve_plain(grid, rk.boundary_fwd_plain(grid, U8, V8,
+                                                              W8, dP8))
+    check("B=8 p1", rel(p_k[0], p_p[0]), 2e-5)
+    check("B=8 p2", rel(p_k[1], p_p[1]), 2e-5)
+    entry("boundary_batched", "boundary.cu", "rk3_pallas.py:426", [p_k],
+          [p_p], lambda: rk.boundary_kernel(grid, U8, V8, W8, dP8),
+          lambda: rk.boundary_solve_plain(grid, rk.boundary_fwd_plain(
+              grid, U8, V8, W8, dP8)))
+
+    log("staged step (rk3_step_k + wall pair) against kernel D, 3 steps")
+    sa = sb = st_p
+    for _ in range(3):
+        _, _, U, V, W, dP, mU, o1, o2 = step_args([sa])
+        U, V, W, dPa = rk.rk3_step_k(grid, U, V, W, dP, mU, o1, o2)
+        sa = sa.replace(U=U, V=V, W=W, dPdx=dPa.reshape(()))
+        p2a = rk.boundary_pressures_k(grid, U, V, W, dPa)[1]
+        U, V, W, dPb, p = rk.env_step_full_kb_kernel(*step_args([sb]))
+        sb = sb.replace(U=U, V=V, W=W, dPdx=dPb.reshape(()))
+        p2b = p[1:2]
+    check("staged/kernel D U", rel(sa.U, sb.U), 1e-5)
+    check("staged/kernel D V", rel(sa.V, sb.V), 1e-4)
+    check("staged/kernel D p2", rel(p2a, p2b), 1e-4)
+
+    log("gradient through projection_step on the card")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    weights = [torch.randn(a.shape, generator=gen, device=dev)
+               for a in (state.U, state.V, state.W)]
+
+    def projection_grads(project):
+        fields = [a.clone().requires_grad_()
+                  for a in (state.U, state.V, state.W)]
+        out = project(*fields)
+        loss = sum((o * w).sum() for o, w in zip(out, weights))
+        return torch.autograd.grad(loss, fields), out[0].grad_fn
+
+    n0 = pc.poisson_solve_kernel.launches
+    g_k, fn_k = projection_grads(
+        lambda U, V, W: cf.projection_step(grid, U, V, W))
+    if pc.poisson_solve_kernel.launches != n0 + 1 or fn_k is None:
+        FAILED.append("projection_step on the card: kernel not launched "
+                      "or no grad_fn")
+    g_p, _ = projection_grads(lambda U, V, W: cf.pressure_correction(
+        grid, U, V, W, pc.poisson_solve_plain(grid, cf.divergence(
+            grid, U, V, W))))
+    for nm, a, b in zip("UVW", g_k, g_p):
+        check(f"grad {nm}", rel(a, b), 1e-5)
+
+    log("env_step with a state that needs a gradient (staged kernels in "
+        "rk3_step's Function); the rollouts refuse such a state")
+    ops0 = cf.gt_control(state, dp)
+    U_req = state.U.clone().requires_grad_()
+    n0 = rk.substage_kernel.launches
+    st_g, p2_g, _, _ = cf.env_step(grid, state.replace(U=U_req), *ops0)
+    (g_U,) = torch.autograd.grad(st_g.U.sum() + p2_g.sum(), U_req)
+    if rk.substage_kernel.launches != n0 + 3 or not torch.isfinite(g_U).all():
+        FAILED.append("env_step with grad: staged kernels not launched 3 "
+                      "times or non-finite gradient")
+    st_n, p2_n, _, _ = cf.env_step(grid, state, *ops0)   # kernel D
+    check("env_step with grad against without: U", rel(st_g.U, st_n.U), 1e-5)
+    check("env_step with grad against without: p2", rel(p2_g, p2_n), 1e-4)
+    try:
+        cf.rollout(grid, state.replace(U=U_req), 1)
+        FAILED.append("rollout on the card took a state that needs a "
+                      "gradient")
+    except RuntimeError as e:
+        if "passes no gradient" not in str(e):
+            raise
+
     # 4. the main path ------------------------------------------------------
     log("main path: NSControlEnv(32, 130, 32) + gt, run_closed_loop 2000")
+    rk.FULLSTEP = True
     kernels = {"rk3_fullstep": rk.env_step_full_kb_kernel,
                "poisson": pc.poisson_solve_kernel,
                "boundary_fwd": rk.boundary_fwd_kernel,
@@ -291,11 +442,72 @@ def main() -> int:
         if v <= 0:
             raise AssertionError(f"kernel {k} not launched on the main path")
 
+    # 5. the data-collection path -------------------------------------------
+    B, T = 8, 500
+    log(f"data collection: batched_rollout of {B} envs, {T} gt steps")
+    staged = {"rk3_substage": rk.substage_kernel,
+              "rk3_solve_correct": rk.solve_correct_kernel,
+              "boundary_batched": rk.boundary_kernel}
+    every = {**kernels, **staged}
+    expect = {True: {"rk3_fullstep": T},
+              False: {"rk3_substage": 3 * T, "rk3_solve_correct": 3 * T,
+                      "boundary_batched": T}}
+    for fullstep in (True, False):
+        rk.FULLSTEP = fullstep
+        rates = []
+        for r in range(4):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(r)
+            states = cf.init_batched_states(grid, B, gen)
+            torch.cuda.synchronize()
+            for fn in every.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            states, outs = cf.batched_rollout(grid, states, T,
+                                              detect_plane=dp, policy="gt")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in every.items()}
+            if r:
+                rates.append(B * T / dt)
+            want = {k: expect[fullstep].get(k, 0) for k in every}
+            if counts != want:
+                raise AssertionError(f"FULLSTEP={fullstep}: launches "
+                                     f"{counts}, expected {want}")
+            shapes = [tuple(o.shape) for o in outs]
+            if shapes != [(B, T, Nx, Nz), (B, T, Nx, Nz), (B, T)]:
+                raise AssertionError(f"batched_rollout shapes {shapes}")
+            for a in (*outs, states.U, states.V, states.W):
+                if not torch.isfinite(a).all():
+                    raise AssertionError("non-finite batched_rollout output")
+        log(f"  {'kernel D' if fullstep else 'staged A+B+C'}: env-steps/s "
+            f"runs {[round(x, 2) for x in rates]} median "
+            f"{sorted(rates)[1]:.2f}  ({smi})")
+        if not fullstep:
+            staged_launches = {k: counts[k] for k in staged}
+    rk.FULLSTEP = True
+    log(f"  staged launches (last run): {staged_launches}")
+
+    log("generate_channel_dataset, 20 steps")
+    env = NSControlEnv(Nx, Ny, Nz, detect_plane=dp, noise_scale=0.05, seed=0,
+                       device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_channel_dataset(tmp, 20, env=env, detect_plane=dp)
+        files = os.listdir(tmp)
+        meta = np.load(os.path.join(tmp, "metadata.npy"),
+                       allow_pickle=True).item()
+        p0 = np.load(os.path.join(tmp, "P_planes_000019.npy"))
+    if len(files) != 41 or set(meta) != {"P_planes", "V_planes", "re"}:
+        raise AssertionError(f"dataset: {len(files)} files, keys {set(meta)}")
+    if p0.shape != (Nx, Nz) or not np.isfinite(p0).all():
+        raise AssertionError("dataset: bad P plane")
+    log(f"  {len(files)} files, metadata keys {sorted(meta)}")
+
     if FAILED:
         raise AssertionError("failed checks: " + "; ".join(FAILED))
-    for k, v in launches.items():
+    for k, v in {**launches, **staged_launches}.items():
         report[k]["launches"] = v
-    print(json.dumps({"kernels": [report[k] for k in kernels]}))
+    print(json.dumps({"kernels": [report[k] for k in every]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

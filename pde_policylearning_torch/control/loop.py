@@ -2,7 +2,8 @@
 
 Counterpart of `pde_policylearning_tpu/control/loop.py`.  The state rides
 in the kernel layout across a chunk, each step is one call of the env step
-(the CUDA kernel D on a card), and the 9 scoreboard values of every step
+(`rk3_cuda.env_step_k`: on a card the CUDA kernel D, or the staged kernels
+when `PDE_RK3_FULLSTEP=0`), and the 9 scoreboard values of every step
 go into one (9, n) device tensor: the host reads it once per chunk, for
 logging and the divergence guard (run_control.py:294-295 of the
 reference).  No per-step `.item()` or `float()`.
@@ -49,7 +50,7 @@ def closed_loop_chunk(grid, state, p2, policy_fn: Callable, n_steps: int,
                   for _ in range(3)]
     for i in range(n_steps):
         opV1, opV2 = policy_fn(st, p2, generator)
-        st, p2, info = rk.env_step_full_k(grid, st, opV1, opV2)
+        st, p2, info = rk.env_step_k(grid, st, opV1, opV2)
         infos[:, i] = torch.stack([info[k] for k in SCOREBOARD_KEYS])
         if collect_planes:
             planes[0][i] = p2
@@ -113,3 +114,26 @@ def run_closed_loop(env, policy_fn, n_steps: int,
         for j, name in enumerate(("p2", "opV2", "v_plane")):
             result[name] = np.concatenate([c[j] for c in all_planes])
     return result
+
+
+def save_collected_dataset(result: dict, out_folder: str,
+                           re: float = 178.1899):
+    """Write a collected control run (`run_closed_loop(...,
+    collect_planes=True)`) in the trainable on-disk format: P_planes_<i>.npy
+    and V_planes_<i>.npy per step plus a metadata.npy dict of their mean
+    and std and Re, as `data.channel.generate_channel_dataset` and the
+    reference's collection loop write (run_control.py:236-293)."""
+    import os
+    os.makedirs(out_folder, exist_ok=True)
+    p2 = result["p2"]
+    v = result["v_plane"]
+    for i in range(len(p2)):
+        np.save(os.path.join(out_folder, f"P_planes_{i:06d}.npy"), p2[i])
+        np.save(os.path.join(out_folder, f"V_planes_{i:06d}.npy"), v[i])
+    meta = {
+        "P_planes": {"mean": p2.mean(0), "std": p2.std(0) + 1e-8},
+        "V_planes": {"mean": v.mean(0), "std": v.std(0) + 1e-8},
+        "re": re,
+    }
+    np.save(os.path.join(out_folder, "metadata.npy"), meta)
+    return out_folder

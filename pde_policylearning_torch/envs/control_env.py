@@ -4,7 +4,8 @@ surface), on the port's torch DNS core.
 Counterpart of `pde_policylearning_tpu/envs/control_env.py:NSControlEnv`.
 The state lives on `device` between steps; on a CUDA device the Poisson
 solves, the wall pressures and the env step go through the hand-written
-kernels (see `channel_flow.py`, `rk3_cuda.py`).
+kernels (see `channel_flow.py`, `rk3_cuda.py`).  `step_n` and the spin-up
+advance many steps with no host sync inside.
 """
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ import torch
 
 from ..utils.device import resolve_device, set_solver_precision
 from . import channel_flow as cf
-from . import rk3_cuda as rk
 
 
 def default_snapshot_path() -> Optional[str]:
@@ -33,6 +33,21 @@ def _relative_loss(a, b):
     return torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(a)
 
 
+def _scan_steps(grid, state, opV1_seq, opV2_seq, n_steps: int):
+    """Advance n_steps with a per-step action sequence (`rk3_step`), then
+    the wall pressures and the scoreboard of each step, all kept on the
+    device.  Returns (state', p2s (n, Nx, Nz), {key: (n,) tensor})."""
+    p2s = torch.empty((n_steps, grid.Nx, grid.Nz), dtype=state.U.dtype,
+                      device=state.U.device)
+    infos = []
+    for i in range(n_steps):
+        state = cf.rk3_step(grid, state, opV1_seq[i], opV2_seq[i])
+        _, p2s[i] = cf.boundary_pressures(grid, state)
+        infos.append(cf.step_metrics(grid, state, p2s[i]))
+    return state, p2s, {k: torch.stack([info[k] for info in infos])
+                        for k in infos[0]}
+
+
 class NSControlEnv:
     """Channel-flow control env: step / gt_control / rand_control /
     get_boundary_pressures / reward_* / cal_* / dump_state / load_state
@@ -42,7 +57,8 @@ class NSControlEnv:
                  detect_plane: int = 25, test_plane: int = 124,
                  dt: float = 1e-3, dtype=torch.float32,
                  init_cond_path: Optional[str] = None,
-                 noise_scale: float = 0.0, seed: int = 0, device=None):
+                 noise_scale: float = 0.0, seed: int = 0,
+                 spinup_steps: int = 0, device=None):
         self.device = resolve_device(device)
         set_solver_precision()
         nu = cf.DEFAULT_NU
@@ -77,6 +93,11 @@ class NSControlEnv:
         else:
             self.state = cf.init_state(self.grid, generator=self.generator,
                                        noise=noise_scale)
+        if spinup_steps:
+            z = torch.zeros((spinup_steps, Nx, Nz), dtype=dtype,
+                            device=self.device)
+            self.state, _, _ = _scan_steps(self.grid, self.state, z, z,
+                                           spinup_steps)
 
         self.U_gt = self.state.U.clone()
         self.V_gt = self.state.V.clone()
@@ -110,6 +131,10 @@ class NSControlEnv:
     @property
     def nu(self):
         return self.grid.nu
+
+    def _tensor(self, a):
+        """Host array -> tensor on the env's device in its dtype."""
+        return torch.as_tensor(np.asarray(a)).to(self.device, self.dtype)
 
     # -- state persistence (control_env.py:134-180) --------------------------
     def dump_state(self, save_path: str):
@@ -186,11 +211,9 @@ class NSControlEnv:
         return max(float(r), bound)
 
     def reward_td(self, prev_U, prev_V, prev_W, bound=-100.0):
-        def t(a):
-            return torch.as_tensor(np.asarray(a)).to(self.device, self.dtype)
-        r = -(_relative_loss(t(prev_U), self.state.U)
-              + _relative_loss(t(prev_V), self.state.V)
-              + _relative_loss(t(prev_W), self.state.W))
+        r = -(_relative_loss(self._tensor(prev_U), self.state.U)
+              + _relative_loss(self._tensor(prev_V), self.state.V)
+              + _relative_loss(self._tensor(prev_W), self.state.W))
         return max(float(r), bound)
 
     def cal_relative_info(self, info):
@@ -211,6 +234,15 @@ class NSControlEnv:
         return cf.rand_control(self.generator, shape, dtype=self.dtype,
                                device=self.device).cpu().numpy()
 
+    # -- physics-informed loss (control_env.py:627-633) ----------------------
+    def pde_loss(self, U, Vgt, V, W, dPdx):
+        U, Vgt, V, W = (self._tensor(a) for a in (U, Vgt, V, W))
+        Fu_gt, Fv_gt, Fw_gt = cf.compute_rhs(self.grid, U, Vgt, W, dPdx)
+        Fu_p, Fv_p, Fw_p = cf.compute_rhs(self.grid, U, V, W, dPdx)
+        return (torch.linalg.vector_norm(Fu_gt - Fu_p)
+                + torch.linalg.vector_norm(Fv_gt - Fv_p)
+                + torch.linalg.vector_norm(Fw_gt - Fw_p))
+
     # -- stepping ------------------------------------------------------------
     def _device_info(self):
         _, p2 = cf.boundary_pressures(self.grid, self.state)
@@ -223,15 +255,27 @@ class NSControlEnv:
         return {k: float(v) for k, v in zip(info, vals)}
 
     def step(self, opV1, opV2):
-        """Advance one step; returns (p2, div_reward, done, info) like
-        control_env.py:639-664."""
-        def t(a):
-            return torch.as_tensor(np.asarray(a)).to(self.device, self.dtype)
-        kst, p2, info = rk.env_step_full_k(
-            self.grid, rk.state_to_kstate(self.state), t(opV1), t(opV2))
-        self.state = rk.kstate_to_state(self.grid, kst)
+        """Advance one step through `channel_flow.env_step`; returns
+        (p2, div_reward, done, info) like control_env.py:639-664."""
+        self.state, p2, _, info = cf.env_step(
+            self.grid, self.state, self._tensor(opV1), self._tensor(opV2))
         host_info = self._fetch_info(info)
         if self.info_init:
             host_info.update(self.cal_relative_info(host_info))
         return (p2.cpu().numpy(), host_info["drag_reduction/4_1_-|divergence|"],
                 False, host_info)
+
+    def step_n(self, opV1_seq, opV2_seq):
+        """Advance len(opV1_seq) steps with no host sync inside; returns the
+        stacked wall pressures (n, Nx, Nz) and the metric time series
+        {key: (n,)}, fetched to the host once."""
+        n = int(np.asarray(opV1_seq).shape[0])
+        self.state, p2s, infos = _scan_steps(
+            self.grid, self.state, self._tensor(opV1_seq),
+            self._tensor(opV2_seq), n)
+        vals = torch.cat([p2s.reshape(-1),
+                          torch.stack(list(infos.values())).reshape(-1)]
+                         ).cpu().numpy()
+        p2_host = vals[:p2s.numel()].reshape(p2s.shape)
+        series = vals[p2s.numel():].reshape(len(infos), n)
+        return p2_host, dict(zip(infos, series))

@@ -7,7 +7,8 @@ regularized and equilibrated (0,0) mean mode through Pinv00_eq,
 `grid.refine_steps` refinement passes with the tridiagonal operator, and
 the inverse transform.  The plain version transforms with `torch.fft`; the
 kernel (csrc/poisson.cu) with Kronecker DFT products on the (y, x*z)
-layout, re|im side by side.
+layout, re|im side by side.  `poisson_solve` dispatches between them and is
+differentiable on both devices (see `_PoissonSolve`).
 """
 from __future__ import annotations
 
@@ -105,7 +106,17 @@ def poisson_consts(grid):
 
 def check_cuda_f32(name, a, shape, contiguous=True):
     """Raise unless `a` is a float32 CUDA tensor of `shape` (and, where the
-    kernel reads it in place, contiguous)."""
+    kernel reads it in place, contiguous) that needs no gradient.
+
+    A kernel writes a fresh buffer, so a gradient would be lost without a
+    word; the differentiable entries (`channel_flow.poisson_solve`,
+    `boundary_pressures`, `rk3_step`, `env_step`) call the kernels inside
+    autograd Functions, where grad mode is off."""
+    if torch.is_grad_enabled() and a.requires_grad:
+        raise RuntimeError(
+            f"{name}: a CUDA kernel passes no gradient; detach the input or "
+            "use the differentiable channel_flow entry (poisson_solve, "
+            "boundary_pressures, rk3_step, env_step)")
     if not a.is_cuda or a.dtype != torch.float32:
         raise ValueError(f"{name}: the CUDA kernel takes float32 CUDA "
                          f"tensors, got {a.dtype} on {a.device}")
@@ -135,3 +146,31 @@ def poisson_solve_kernel(grid, rhs):
 
 
 poisson_solve_kernel.launches = 0
+
+
+class _PoissonSolve(torch.autograd.Function):
+    """The solve of rhs (Nx, n, Nz): the kernel on a CUDA tensor, the plain
+    version on a CPU tensor.  The backward is the VJP of the plain version,
+    recomputed (as `poisson_pallas.poisson_solve_fused`'s rule delegates to
+    XLA).  The grid's constants get no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, rhs):
+        ctx.grid = grid
+        ctx.save_for_backward(rhs)
+        if rhs.is_cuda:
+            return poisson_solve_kernel(grid, rhs)
+        return poisson_solve_plain(grid, rhs)
+
+    @staticmethod
+    def backward(ctx, g):
+        rhs = ctx.saved_tensors[0].detach().requires_grad_()
+        with torch.enable_grad():
+            p = poisson_solve_plain(ctx.grid, rhs)
+        return None, torch.autograd.grad(p, rhs, g)[0]
+
+
+def poisson_solve(grid, rhs):
+    """Solve for rhs (Nx, n, Nz): the plain torch solve for a CPU tensor,
+    the CUDA kernel for a CUDA tensor; differentiable on both."""
+    return _PoissonSolve.apply(grid, rhs)

@@ -1,30 +1,45 @@
-"""The closed-loop env step in the (y, x*z) kernel layout: plain torch
-versions and the CUDA kernels that replace the Pallas kernels of
-`pde_policylearning_tpu/envs/rk3_pallas.py` on the main path.
+"""The env step in the (y, x*z) kernel layout: plain torch versions and
+the CUDA kernels that replace the Pallas kernels of
+`pde_policylearning_tpu/envs/rk3_pallas.py`.
 
 Layout: rows = wall-normal y, columns = x*Nz + z; B environments pack
 env-major along the columns, (rows, B*C) with C = Nx*Nz, as
 `rk3_pallas.batch_states` packs them.
 
 Kernels (csrc/):
+  * `substage_kernel` (rk3_staged.cu) <- `_substage_kernel` ("kernel A"):
+    one RK3 substage up to its projection (RHS, RK update, BCs,
+    divergence).
+  * `solve_correct_kernel` (rk3_staged.cu) <- `_solve_correct_kernel`
+    ("kernel B"): the bordered eigen-solve of the divergence, the pressure
+    correction and the BCs.
   * `env_step_full_kb_kernel` (rk3_fullstep.cu) <- `_rk3_full_kernel`
-    ("kernel D"): three RK3 substages, each with the bordered eigen-solve
-    and one refinement pass in f32, the mass-flow correction, the new
-    dPdx and the wall pressures of the new state.
+    ("kernel D"): the whole env step, 3 x (A + B), the mass-flow
+    correction and the wall pressures of the new state, in one C entry.
   * `boundary_fwd_kernel` / `boundary_solve_kernel` (boundary.cu) <-
     `_boundary_fwd_kernel` / `_boundary_solve_kernel`: the pressure RHS
     and its forward transform, then the 4-row bordered solve and the
     synthesis of (p1, p2).
+  * `boundary_kernel` (boundary.cu, both phases in one call) <-
+    `_boundary_kernel` ("kernel C"), the batched wall pressures.
+  * `mass_flow_kernel` (rk3_staged.cu): the staged step's mass-flow
+    correction, float64 in one fixed order (XLA glue in the JAX step).
+
+`FULLSTEP` selects kernel D or the staged path for the env step and the
+rollouts, exactly as `rk3_pallas.FULLSTEP` does (`PDE_RK3_FULLSTEP`, read
+once at import; "1", the default, is kernel D).
 
 Each `*_kernel` takes float32 CUDA tensors only and raises otherwise; the
-dispatchers (`env_step_full_kb`, `boundary_pressures_k`) send a CPU tensor
-to the plain version and a CUDA tensor to the kernel.  The kernels'
-constants and scratch are built once per grid (and per B) and cached on
-`grid.cache`; calls that share a grid must run on one CUDA stream.
+dispatchers (`rk3_step_kb`, `env_step_full_kb`, `boundary_pressures_k`,
+`boundary_pressures_kb`) send a CPU tensor to the plain version and a CUDA
+tensor to the kernel.  The kernels' constants and scratch are built once
+per grid (and per B) and cached on `grid.cache`; calls that share a grid
+must run on one CUDA stream.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 import numpy as np
 import torch
@@ -36,6 +51,10 @@ from .poisson_cuda import check_cuda_f32, _kron_mats, poisson_consts
 # (c_cur, c_prev on F1): the RK3 coefficient triples [8/15],
 # [1/4, 5/12], [1/4, 0, 3/4] as (current, first-stage) pairs
 _RK3_STAGES = ((8 / 15, 0.0), (5 / 12, 1 / 4), (3 / 4, 1 / 4))
+
+# kernel D (1, the default) or the staged 3 x (A + B) path (0) for the env
+# step and the rollouts; scripts/drag_study.py pins 0
+FULLSTEP = os.environ.get("PDE_RK3_FULLSTEP", "1") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +94,23 @@ def _pack(a):
     """(B, Nx, R, Nz) -> packed (R, B*C)."""
     B, Nx, R, Nz = a.shape
     return a.permute(2, 0, 1, 3).reshape(R, B * Nx * Nz)
+
+
+def batch_states(states):
+    """Batched ChannelState (leaves (B, Nx, R, Nz), dPdx and meanU0 (B,))
+    -> packed kernel layout: leaves (R, B*C), columns b*C + x*Nz + z."""
+    return states.replace(U=_pack(states.U).contiguous(),
+                          V=_pack(states.V).contiguous(),
+                          W=_pack(states.W).contiguous(),
+                          dPdx=states.dPdx.reshape(-1),
+                          meanU0=states.meanU0.reshape(-1))
+
+
+def unbatch_states(grid, kstates, B: int):
+    """Inverse of `batch_states`."""
+    return kstates.replace(U=_unpack(kstates.U, grid, B).contiguous(),
+                           V=_unpack(kstates.V, grid, B).contiguous(),
+                           W=_unpack(kstates.W, grid, B).contiguous())
 
 
 def _spec(a):
@@ -316,42 +352,102 @@ def _mass_flow(grid, U, meanU0, dPdx):
             (0.5 * (dPdx.double() + d_new / grid.dt)).to(U.dtype))
 
 
-def env_step_full_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1, op2):
-    """Kernel D's function in plain torch: one env step for B packed envs.
+def substage_plain(grid, B, U, V, W, U0, V0, W0, F1, op1, op2, dPdx, c_cur,
+                   c_prev, out_f):
+    """Kernel A's function in plain torch, for B packed envs: the momentum
+    RHS of (U, V, W), the RK update from the step's initial fields
+    (U0, V0, W0) with dt*c_cur on that RHS and, when c_prev, dt*c_prev on
+    the first stage's RHS F1 = (F1u, F1v, F1w), the wall BCs, and the cell
+    divergence of the result.
+
+    U/W: (Ny+1, B*C), V: (Ny, B*C), op1/op2: (1, B*C), dPdx: (B,).
+    Returns packed (Un, Vn, Wn, div (Ny-1, B*C), Fu, Fv, Fw); the RHS
+    fields are None unless out_f."""
+    dt = grid.dt
+
+    def unpack(a):
+        return _unpack(a, grid, B)
+
+    Fu, Fv, Fw = cf.compute_rhs(grid, unpack(U), unpack(V), unpack(W),
+                                dPdx.reshape(B, 1, 1, 1))
+    Un = unpack(U0) + dt * c_cur * Fu
+    Vn = unpack(V0) + dt * c_cur * Fv
+    Wn = unpack(W0) + dt * c_cur * Fw
+    if c_prev:
+        F1u, F1v, F1w = (unpack(a) for a in F1)
+        Un = Un + dt * c_prev * F1u
+        Vn = Vn + dt * c_prev * F1v
+        Wn = Wn + dt * c_prev * F1w
+    Un, Vn, Wn = cf.apply_boundary_condition(
+        Un, Vn, Wn, op1.reshape(B, grid.Nx, grid.Nz),
+        op2.reshape(B, grid.Nx, grid.Nz))
+    div = cf.divergence(grid, Un, Vn, Wn)
+    F = tuple(map(_pack, (Fu, Fv, Fw))) if out_f else (None, None, None)
+    return (*map(_pack, (Un, Vn, Wn, div)), *F)
+
+
+def solve_correct_plain(grid, B, div, U, V, W, op1, op2):
+    """Kernel B's function in plain torch, for B packed envs: the bordered
+    eigen-solve of div (Ny-1, B*C) with `grid.refine_steps` refinement
+    passes, U, V, W -= grad p on the interior rows, then the wall BCs.
+    Returns packed (U, V, W)."""
+    p = _poisson_bordered_plain(grid, solve_consts(grid),
+                                _unpack(div, grid, B))
+    U, V, W = cf.pressure_correction(grid, _unpack(U, grid, B),
+                                     _unpack(V, grid, B),
+                                     _unpack(W, grid, B), p)
+    U, V, W = cf.apply_boundary_condition(
+        U, V, W, op1.reshape(B, grid.Nx, grid.Nz),
+        op2.reshape(B, grid.Nx, grid.Nz))
+    return _pack(U), _pack(V), _pack(W)
+
+
+def mass_flow_plain(grid, B, U, meanU0, dPdx):
+    """The mass-flow correction of packed U (interior rows + d_new / 2 per
+    env, ghost rows untouched) -> (U', dPdx')."""
+    half_d, dPdx_new = _mass_flow(grid, _unpack(U, grid, B), meanU0, dPdx)
+    C = grid.Nx * grid.Nz
+    U = torch.cat([U[:1], U[1:-1] + half_d.repeat_interleave(C)[None],
+                   U[-1:]])
+    return U, dPdx_new
+
+
+def _rk3_step(substage, solve_correct, mass_flow, grid, B, U, V, W, dPdx,
+              meanU0, op1, op2):
+    """Three substages of (substage, solve_correct), then mass_flow: the
+    one body of the staged step and of kernel D's plain version."""
+    U0, V0, W0 = U, V, W
+    F1 = None
+    for i, (c_cur, c_prev) in enumerate(_RK3_STAGES):
+        Un, Vn, Wn, div, *F = substage(grid, B, U, V, W, U0, V0, W0, F1,
+                                       op1, op2, dPdx, c_cur, c_prev, i == 0)
+        if i == 0:
+            F1 = F
+        U, V, W = solve_correct(grid, B, div, Un, Vn, Wn, op1, op2)
+    U, dPdx = mass_flow(grid, B, U, meanU0, dPdx)
+    return U, V, W, dPdx
+
+
+def rk3_step_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """The staged RK3 step in plain torch for B packed envs: 3 x (kernel
+    A, kernel B), then the mass-flow correction.
 
     U/W: (Ny+1, B*C), V: (Ny, B*C), dPdx/meanU0: (B,), op1/op2: (1, B*C).
-    Returns (U, V, W, dPdx' (B,), p (2, B*C))."""
-    c = solve_consts(grid)
-    dt = grid.dt
-    U0, V0, W0 = (_unpack(a, grid, B) for a in (U, V, W))
-    o1 = op1.reshape(B, grid.Nx, grid.Nz)
-    o2 = op2.reshape(B, grid.Nx, grid.Nz)
-    dP = dPdx.reshape(B, 1, 1, 1)
-    U, V, W = U0, V0, W0
-    for i, (c_cur, c_prev) in enumerate(_RK3_STAGES):
-        Fu, Fv, Fw = cf.compute_rhs(grid, U, V, W, dP)
-        if i == 0:
-            F1u, F1v, F1w = Fu, Fv, Fw
-        Un = U0 + dt * c_cur * Fu
-        Vn = V0 + dt * c_cur * Fv
-        Wn = W0 + dt * c_cur * Fw
-        if c_prev:
-            Un = Un + dt * c_prev * F1u
-            Vn = Vn + dt * c_prev * F1v
-            Wn = Wn + dt * c_prev * F1w
-        Un, Vn, Wn = cf.apply_boundary_condition(Un, Vn, Wn, o1, o2)
-        p = _poisson_bordered_plain(grid, c, cf.divergence(grid, Un, Vn, Wn))
-        U, V, W = cf.pressure_correction(grid, Un, Vn, Wn, p)
-        U, V, W = cf.apply_boundary_condition(U, V, W, o1, o2)
+    Returns (U, V, W, dPdx' (B,))."""
+    return _rk3_step(substage_plain, solve_correct_plain, mass_flow_plain,
+                     grid, B, U, V, W, dPdx, meanU0, op1, op2)
 
-    # mass-flow correction on the interior rows (ghost rows untouched)
-    half_d, dPdx_new = _mass_flow(grid, U, meanU0, dPdx)
-    U = torch.cat([U[:, :, :1], U[:, :, 1:-1] + half_d[:, None, None, None],
-                   U[:, :, -1:]], 2)
-    U, V, W = _pack(U), _pack(V), _pack(W)
-    p = boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W,
-                                                      dPdx_new))
-    return U, V, W, dPdx_new, p
+
+def env_step_full_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """Kernel D's function in plain torch: the staged step
+    (`rk3_step_kb_plain`), then the wall pressures of the new state.
+
+    Same arguments as `rk3_step_kb_plain`.  Returns
+    (U, V, W, dPdx' (B,), p (2, B*C))."""
+    U, V, W, dPdx = rk3_step_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1,
+                                      op2)
+    p = boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W, dPdx))
+    return U, V, W, dPdx, p
 
 
 # ---------------------------------------------------------------------------
@@ -400,7 +496,8 @@ def kernel_args(grid, B: int) -> KernelArgs:
     dims = cuda_build.Dims(
         B=B, Nx=Nx, Ny=Ny, Nz=Nz, refine_steps=grid.refine_steps,
         nu=grid.nu, dx=grid.dx, dz=grid.dz, dt=grid.dt,
-        dlm=float(c.dlm), dd0h=float(c.dd0h))
+        dlm=float(c.dlm), dd0h=float(c.dd0h), dx2=grid.dx ** 2,
+        dz2=grid.dz ** 2)
     ops_t = {k: v.contiguous() for k, v in dict(
         dyf=c.dyf, dyg=c.dyg, dym=c.dym, trapw=c.trapw, T2=c.T2, Ti2=c.Ti2,
         A1=c.A1, B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
@@ -433,19 +530,97 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(a):
+    return None if a is None else a.data_ptr()
+
+
+def _check_packed(grid, B, **fields):
+    """check_cuda_f32 on packed fields, each shape known from its name:
+    U*, W*, F1u, F1w (Ny+1, B*C); V*, F1v (Ny, B*C); div (Ny-1, B*C);
+    op1, op2 (1, B*C); dPdx, meanU0 (B,)."""
+    Ny, BC = grid.Ny, B * grid.Nx * grid.Nz
+    rows = {"U": Ny + 1, "W": Ny + 1, "V": Ny, "d": Ny - 1, "o": 1}
+    for name, a in fields.items():
+        key = name[-1].upper() if name.startswith("F1") else name[0]
+        shape = (B,) if name in ("dPdx", "meanU0") else (rows[key], BC)
+        check_cuda_f32(name, a, shape)
+
+
+def substage_kernel(grid, B, U, V, W, U0, V0, W0, F1, op1, op2, dPdx, c_cur,
+                    c_prev, out_f):
+    """Kernel A on the card (csrc/rk3_staged.cu); same contract as
+    `substage_plain`, float32 CUDA tensors only."""
+    F1u, F1v, F1w = F1 if c_prev else (None, None, None)
+    _check_packed(grid, B, U=U, V=V, W=W, U0=U0, V0=V0, W0=W0, op1=op1,
+                  op2=op2, dPdx=dPdx,
+                  **(dict(F1u=F1u, F1v=F1v, F1w=F1w) if c_prev else {}))
+    args = kernel_args(grid, B)
+    Un, Vn, Wn = torch.empty_like(U), torch.empty_like(V), torch.empty_like(W)
+    div = torch.empty((grid.Ny - 1, U.shape[1]), dtype=torch.float32,
+                      device=U.device)
+    F = ((torch.empty_like(U), torch.empty_like(V), torch.empty_like(W))
+         if out_f else (None, None, None))
+    err = cuda_build.load().pde_rk3_substage(
+        args.dims_ref, args.ops_ref, args.work_ref, U.data_ptr(),
+        V.data_ptr(), W.data_ptr(), U0.data_ptr(), V0.data_ptr(),
+        W0.data_ptr(), _ptr(F1u), _ptr(F1v), _ptr(F1w), op1.data_ptr(),
+        op2.data_ptr(), dPdx.data_ptr(), grid.dt * c_cur, grid.dt * c_prev,
+        int(out_f), Un.data_ptr(), Vn.data_ptr(), Wn.data_ptr(),
+        div.data_ptr(), *map(_ptr, F), _stream(U))
+    cuda_build.check(err, "pde_rk3_substage")
+    substage_kernel.launches += 1
+    return Un, Vn, Wn, div, *F
+
+
+substage_kernel.launches = 0
+
+
+def solve_correct_kernel(grid, B, div, U, V, W, op1, op2):
+    """Kernel B on the card (csrc/rk3_staged.cu); same contract as
+    `solve_correct_plain`, float32 CUDA tensors only."""
+    _check_packed(grid, B, div=div, U=U, V=V, W=W, op1=op1, op2=op2)
+    args = kernel_args(grid, B)
+    Uo, Vo, Wo = torch.empty_like(U), torch.empty_like(V), torch.empty_like(W)
+    err = cuda_build.load().pde_rk3_solve_correct(
+        args.dims_ref, args.ops_ref, args.work_ref, div.data_ptr(),
+        U.data_ptr(), V.data_ptr(), W.data_ptr(), op1.data_ptr(),
+        op2.data_ptr(), Uo.data_ptr(), Vo.data_ptr(), Wo.data_ptr(),
+        _stream(U))
+    cuda_build.check(err, "pde_rk3_solve_correct")
+    solve_correct_kernel.launches += 1
+    return Uo, Vo, Wo
+
+
+solve_correct_kernel.launches = 0
+
+
+def mass_flow_kernel(grid, B, U, meanU0, dPdx):
+    """The mass-flow correction on the card (csrc/rk3_staged.cu): same
+    contract as `mass_flow_plain`, but U is updated in place (the staged
+    step hands it the fresh output of kernel B)."""
+    _check_packed(grid, B, U=U, meanU0=meanU0, dPdx=dPdx)
+    args = kernel_args(grid, B)
+    dPo = torch.empty_like(dPdx)
+    err = cuda_build.load().pde_rk3_massflow(
+        args.dims_ref, args.ops_ref, args.work_ref, U.data_ptr(),
+        meanU0.data_ptr(), dPdx.data_ptr(), dPo.data_ptr(), _stream(U))
+    cuda_build.check(err, "pde_rk3_massflow")
+    mass_flow_kernel.launches += 1
+    return U, dPo
+
+
+mass_flow_kernel.launches = 0
+
+
 def env_step_full_kb_kernel(grid, B, U, V, W, dPdx, meanU0, op1, op2):
     """Kernel D on the card (csrc/rk3_fullstep.cu); same contract as
     `env_step_full_kb_plain`, float32 CUDA tensors only."""
-    Ny, C = grid.Ny, grid.Nx * grid.Nz
-    for name, a, shape in (("U", U, (Ny + 1, B * C)), ("V", V, (Ny, B * C)),
-                           ("W", W, (Ny + 1, B * C)), ("dPdx", dPdx, (B,)),
-                           ("meanU0", meanU0, (B,)),
-                           ("op1", op1, (1, B * C)), ("op2", op2, (1, B * C))):
-        check_cuda_f32(name, a, shape)
+    _check_packed(grid, B, U=U, V=V, W=W, dPdx=dPdx, meanU0=meanU0, op1=op1,
+                  op2=op2)
     args = kernel_args(grid, B)
     Uo, Vo, Wo = torch.empty_like(U), torch.empty_like(V), torch.empty_like(W)
     dPo = torch.empty_like(dPdx)
-    p = torch.empty((2, B * C), dtype=torch.float32, device=U.device)
+    p = torch.empty((2, U.shape[1]), dtype=torch.float32, device=U.device)
     err = cuda_build.load().pde_rk3_fullstep(
         args.dims_ref, args.ops_ref, args.work_ref,
         U.data_ptr(), V.data_ptr(), W.data_ptr(), op1.data_ptr(),
@@ -466,12 +641,9 @@ def boundary_fwd_kernel(grid, U, V, W, dPdx):
     """Pressure RHS + forward transform on the card (csrc/boundary.cu,
     first phase) -> t (B, n, 2F)."""
     B = dPdx.shape[0]
-    Ny, C = grid.Ny, grid.Nx * grid.Nz
-    for name, a, shape in (("U", U, (Ny + 1, B * C)), ("V", V, (Ny, B * C)),
-                           ("W", W, (Ny + 1, B * C)), ("dPdx", dPdx, (B,))):
-        check_cuda_f32(name, a, shape)
+    _check_packed(grid, B, U=U, V=V, W=W, dPdx=dPdx)
     args = kernel_args(grid, B)
-    t = torch.empty((B, Ny - 1, 2 * grid.Nx * (grid.Nz // 2 + 1)),
+    t = torch.empty((B, grid.Ny - 1, 2 * grid.Nx * (grid.Nz // 2 + 1)),
                     dtype=torch.float32, device=U.device)
     err = cuda_build.load().pde_boundary_pressures(
         args.dims_ref, args.ops_ref, args.work_ref, _FWD, U.data_ptr(),
@@ -505,9 +677,52 @@ def boundary_solve_kernel(grid, t):
 boundary_solve_kernel.launches = 0
 
 
+
+
+def boundary_kernel(grid, U, V, W, dPdx):
+    """Kernel C on the card: both phases of csrc/boundary.cu in one call
+    (the pressure RHS and its transform into the cached scratch, then the
+    4-row solve and synthesis) -> p (2, B*C) = (p1; p2).  The TPU split
+    this kernel in two only for its 16 MB scoped-VMEM budget
+    (rk3_pallas.py:356-360); the plain version is the pair's."""
+    B = dPdx.shape[0]
+    _check_packed(grid, B, U=U, V=V, W=W, dPdx=dPdx)
+    args = kernel_args(grid, B)
+    p = torch.empty((2, U.shape[1]), dtype=torch.float32, device=U.device)
+    err = cuda_build.load().pde_boundary_pressures(
+        args.dims_ref, args.ops_ref, args.work_ref, _FWD | _SOLVE,
+        U.data_ptr(), V.data_ptr(), W.data_ptr(), dPdx.data_ptr(),
+        args.tensors["t"].data_ptr(), p.data_ptr(), _stream(U))
+    cuda_build.check(err, "pde_boundary_pressures (both phases)")
+    boundary_kernel.launches += 1
+    return p
+
+
+boundary_kernel.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # dispatchers: CPU tensor -> plain, CUDA tensor -> kernel
 # ---------------------------------------------------------------------------
+
+def rk3_step_kb(grid, B, U, V, W, dPdx, meanU0, op1, op2):
+    """The staged RK3 step for B packed envs (see `rk3_step_kb_plain`): on
+    the card 3 x (kernel A, kernel B) and the mass-flow kernels."""
+    if U.is_cuda:
+        return _rk3_step(substage_kernel, solve_correct_kernel,
+                         mass_flow_kernel, grid, B, U, V, W, dPdx, meanU0,
+                         op1, op2)
+    return rk3_step_kb_plain(grid, B, U, V, W, dPdx, meanU0, op1, op2)
+
+
+def rk3_step_k(grid, U, V, W, dPdx, meanU0, op1, op2):
+    """The staged RK3 step of one env in kernel layout; dPdx and meanU0
+    of any single-element shape, op1/op2 (1, C).  Returns
+    (U, V, W, dPdx') with dPdx' in dPdx's shape."""
+    U, V, W, dP = rk3_step_kb(grid, 1, U, V, W, dPdx.reshape(1),
+                              meanU0.reshape(1), op1, op2)
+    return U, V, W, dP.reshape(dPdx.shape)
+
 
 def env_step_full_kb(grid, B, U, V, W, dPdx, meanU0, op1, op2):
     """One env step for B packed envs (see `env_step_full_kb_plain`)."""
@@ -515,30 +730,85 @@ def env_step_full_kb(grid, B, U, V, W, dPdx, meanU0, op1, op2):
     return step(grid, B, U, V, W, dPdx, meanU0, op1, op2)
 
 
+class _BoundaryPressures(torch.autograd.Function):
+    """The wall-pressure pair of packed state -> p (2, B*C).  The forward
+    runs the kernel pair on a CUDA tensor and the plain version on a CPU
+    tensor; the backward is the VJP of the plain version, recomputed (as
+    `rk3_pallas.boundary_pressures_fused`'s rule delegates to XLA).  The
+    grid's constants get no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, U, V, W, dPdx):
+        ctx.grid = grid
+        ctx.save_for_backward(U, V, W, dPdx)
+        if U.is_cuda:
+            return boundary_solve_kernel(grid, boundary_fwd_kernel(
+                grid, U, V, W, dPdx))
+        return boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W,
+                                                             dPdx))
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            p = boundary_solve_plain(ctx.grid,
+                                     boundary_fwd_plain(ctx.grid, *inputs))
+        return (None, *torch.autograd.grad(p, inputs, g, allow_unused=True))
+
+
 def boundary_pressures_k(grid, U, V, W, dPdx):
     """(p1, p2) rows, each (1, B*C), of packed kernel-layout state;
-    dPdx (B,)."""
+    dPdx (B,).  Differentiable (see `_BoundaryPressures`)."""
+    p = _BoundaryPressures.apply(grid, U, V, W, dPdx)
+    return p[0:1], p[1:2]
+
+
+def boundary_pressures_kb(grid, B, U, V, W, dPdx):
+    """(p1, p2) rows, each (1, B*C), of B packed envs: kernel C on the
+    card, the plain pair on the CPU (the staged batched rollout's
+    observation; not differentiable)."""
     if U.is_cuda:
-        p = boundary_solve_kernel(grid, boundary_fwd_kernel(grid, U, V, W,
-                                                            dPdx))
+        p = boundary_kernel(grid, U, V, W, dPdx)
     else:
         p = boundary_solve_plain(grid, boundary_fwd_plain(grid, U, V, W,
                                                           dPdx))
     return p[0:1], p[1:2]
 
 
-def env_step_full_k(grid, kstate, opV1, opV2):
-    """Single-env step on a kernel-layout ChannelState: advance, wall
-    pressures and scoreboard.  opV1/opV2 arrive (Nx, Nz) or (C,) from the
-    policies.  Returns (kstate', p2 (Nx, Nz), info)."""
+def _action_rows(grid, kstate, opV1, opV2):
+    """Actuation planes ((Nx, Nz) or (C,), any dtype) -> (1, C) rows in
+    the state's dtype."""
     C = grid.Nx * grid.Nz
     dtype = kstate.U.dtype
-    op1 = opV1.reshape(1, C).to(dtype).contiguous()
-    op2 = opV2.reshape(1, C).to(dtype).contiguous()
+    return (opV1.reshape(1, C).to(dtype).contiguous(),
+            opV2.reshape(1, C).to(dtype).contiguous())
+
+
+def env_step_full_k(grid, kstate, opV1, opV2):
+    """Single-env step through kernel D on a kernel-layout ChannelState:
+    advance, wall pressures and scoreboard.  opV1/opV2 arrive (Nx, Nz) or
+    (C,) from the policies.  Returns (kstate', p2 (Nx, Nz), info)."""
+    op1, op2 = _action_rows(grid, kstate, opV1, opV2)
     U, V, W, dPdx, p = env_step_full_kb(
         grid, 1, kstate.U, kstate.V, kstate.W, kstate.dPdx.reshape(1),
         kstate.meanU0.reshape(1), op1, op2)
     kstate = kstate.replace(U=U, V=V, W=W,
                             dPdx=dPdx.reshape(kstate.dPdx.shape))
     p2 = p[1].reshape(grid.Nx, grid.Nz)
+    return kstate, p2, step_metrics_k(grid, kstate, p2)
+
+
+def env_step_k(grid, kstate, opV1, opV2):
+    """Single-env step on a kernel-layout ChannelState (the closed loop's
+    body): kernel D when `FULLSTEP`, else the staged step, the wall-
+    pressure pair and the scoreboard.  Returns (kstate', p2 (Nx, Nz),
+    info)."""
+    if FULLSTEP:
+        return env_step_full_k(grid, kstate, opV1, opV2)
+    op1, op2 = _action_rows(grid, kstate, opV1, opV2)
+    U, V, W, dPdx = rk3_step_k(grid, kstate.U, kstate.V, kstate.W,
+                               kstate.dPdx, kstate.meanU0, op1, op2)
+    kstate = kstate.replace(U=U, V=V, W=W, dPdx=dPdx)
+    _, p2 = boundary_pressures_k(grid, U, V, W, dPdx.reshape(1))
+    p2 = p2.reshape(grid.Nx, grid.Nz)
     return kstate, p2, step_metrics_k(grid, kstate, p2)

@@ -3,8 +3,9 @@ ctypes.
 
 The library is built at first use into `build/kernels/` at the repository
 root, named by a hash of the sources and flags, so an edit to any source
-triggers a rebuild and an unchanged tree reuses the file.  There is no
-fallback: without nvcc, loading raises.
+triggers a rebuild and an unchanged tree reuses the file.  Each source
+compiles in its own nvcc process, all started together, and one more nvcc
+links the objects.  There is no fallback: without nvcc, loading raises.
 
 Every C entry returns its `cudaError_t` (0 on success); `check` raises on
 anything else.  Pointers and the stream pass as `c_void_p`, the structs
@@ -17,13 +18,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# --fmad=false: the stencils round term by term as the plain torch versions
+# do (csrc/common.cuh); the GEMMs call fmaf explicitly.
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 
@@ -35,7 +41,8 @@ class Dims(ctypes.Structure):
                 ("refine_steps", ctypes.c_int),
                 ("nu", ctypes.c_float), ("dx", ctypes.c_float),
                 ("dz", ctypes.c_float), ("dt", ctypes.c_float),
-                ("dlm", ctypes.c_float), ("dd0h", ctypes.c_float)]
+                ("dlm", ctypes.c_float), ("dd0h", ctypes.c_float),
+                ("dx2", ctypes.c_float), ("dz2", ctypes.c_float)]
 
 
 class Ops(ctypes.Structure):
@@ -63,6 +70,14 @@ _ENTRIES = {
     # dims, ops, work, U, V, W, op1, op2, dPdx, meanU0,
     # Uo, Vo, Wo, dPdx_out, p, stream
     "pde_rk3_fullstep": [_P] * 16,
+    # dims, ops, work, U, V, W, U0, V0, W0, F1u, F1v, F1w, op1, op2, dPdx,
+    # a, bp, out_f, Un, Vn, Wn, div, Fu, Fv, Fw, stream
+    "pde_rk3_substage": [_P] * 15 + [ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_int] + [_P] * 8,
+    # dims, ops, work, div, Un, Vn, Wn, op1, op2, Uo, Vo, Wo, stream
+    "pde_rk3_solve_correct": [_P] * 13,
+    # dims, ops, work, U (updated in place), meanU0, dPdx, dPdx_out, stream
+    "pde_rk3_massflow": [_P] * 8,
 }
 
 _lib = None
@@ -99,22 +114,33 @@ def build() -> Path:
     """Compile the kernels unless the library for this source tree
     exists; returns its path."""
     global build_log, build_seconds
-    import time
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [f"{tmp}/{f.stem}.o" for f in cu]
+        procs = [_start([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)])
+                 for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        if all(p.returncode == 0 for p in procs):
+            procs.append(_start([nvcc, *GENCODE, "-shared", "-o",
+                                 f"{tmp}/lib.so", *objs]))
+            logs.append(procs[-1].communicate()[0])
+        build_log = "".join(logs)
+        build_seconds = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(f"{tmp}/lib.so", so)
     return so
+
+
+def _start(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def load():

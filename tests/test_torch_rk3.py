@@ -205,6 +205,49 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
         cuda_build.load()
 
 
+@pytest.mark.parametrize("fail_on", ["", "rk3_staged.cu", "-shared"])
+def test_kernel_build_compiles_each_source_then_links(monkeypatch, tmp_path,
+                                                      fail_on):
+    """One nvcc per source, then one link, into the hashed library path; a
+    failing compile or link raises with the log and leaves no library
+    behind.  (A stand-in nvcc records its calls and writes its -o file.)"""
+    import sys
+    from pde_policylearning_torch.native import cuda_build
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        f"open({str(calls)!r}, 'a').write(' '.join(args) + '\\n')\n"
+        f"if {fail_on!r} and any({fail_on!r} in a for a in args):\n"
+        "    print('broken')\n"
+        "    sys.exit(1)\n"
+        "open(args[args.index('-o') + 1], 'w').close()\n"
+        "print('ptxas info : Used 8 registers')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(cuda_build, "NVCC_DEFAULT", str(nvcc))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    so = cuda_build.library_path()
+    if fail_on:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            cuda_build.build()
+        assert "broken" in cuda_build.build_log
+        assert not so.exists()
+    else:
+        assert cuda_build.build() == so and so.exists()
+        assert "Used 8 registers" in cuda_build.build_log
+    lines = calls.read_text().splitlines()
+    sources = sorted(cuda_build.CSRC.glob("*.cu"))
+    assert sorted(ln.split()[-1] for ln in lines if " -c " in ln) == \
+        sorted(map(str, sources))
+    assert sum("-shared" in ln for ln in lines) == (
+        0 if fail_on == "rk3_staged.cu" else 1)
+    assert list((tmp_path / "kernels").iterdir()) == ([so] if not fail_on
+                                                     else [])
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(cuda_device, monkeypatch):
     """Kernel D (B = 1 and 2) and the wall-pressure pair against their
