@@ -8,8 +8,12 @@ result):
   2. the kernel build from pde_policylearning_torch/csrc (nvcc, sm_90a);
   3. every kernel of the main path against its plain torch version on the
      card, at the main path's shapes (32x130x32, the packaged Re_tau~180
-     snapshot, float32, TF32 off), with its error and both times (CUDA
-     events, median of several calls);
+     snapshot, float32, TF32 off), with its error, both times (CUDA
+     events, median of several calls) and its bound on this card: the
+     larger of its operations over 67 TFLOP/s (fp32 outside the tensor
+     cores) and its bytes over 3.35 TB/s, both counted from the shapes as
+     the function needs them (`work` below: the x/z transforms as FFTs),
+     with the cost of the kernel as built (dense DFT products) beside it;
      Kernels A and B (the staged step, each substage) and the mass-flow
      kernels at B = 1 and B = 8, the whole staged step and kernel D at
      B = 8, and kernel C (the batched wall pressures, B = 8), from the
@@ -17,6 +21,13 @@ result):
      kernel D over three steps; the gradient through projection_step on
      the card against the plain version's; env_step with a state that
      needs a gradient, and the rollouts refusing one;
+     the corner-contraction kernel against its plain version at the
+     observer's serving shape (R 12, B 1, M2 6, I = O = 32), its training
+     batch (B 20), a ragged and a large shape, its gradients through the
+     autograd Function, `spectral_conv_nd` and the full-width
+     `FNO2dObserver(12, 12, 32)` (forward, and the gradient to its input)
+     kernel route against plain route, and a 20-step `fno` closed loop on
+     both routes;
   4. the main path: NSControlEnv(32, 130, 32, noise 0.05, seed 0) with the
      opposition policy, run_closed_loop for 2000 steps once to warm up and
      three timed runs; the kernels' launch counts over exactly that run;
@@ -24,13 +35,22 @@ result):
      steps through kernel D and through the staged kernels
      (PDE_RK3_FULLSTEP=0), one warm-up and three timed runs each, the
      staged kernels' launch counts over exactly the last staged run; then
-     generate_channel_dataset for 20 steps into a temporary directory.
+     generate_channel_dataset for 100 steps into a temporary directory,
+     read back with PDEDataset.from_folder for its normalizers;
+  6. the observer-policy path at full width: FNO2dObserver(12, 12, 32)
+     with weights from a seeded generator on the card, make_policy('fno',
+     action_scale 0.3, action_clip 0.01) and run_closed_loop for 2000
+     steps, then make_policy('optimal-observer', opt_steps 10) for 200
+     steps, one warm-up and three timed runs each; the corner kernel's
+     launch count over exactly one timed run must be 4 per `fno` step and
+     80 per `optimal-observer` step.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -88,14 +108,18 @@ def main() -> int:
 
     from pde_policylearning_torch.control import make_policy, run_closed_loop
     from pde_policylearning_torch.control.loop import SCOREBOARD_KEYS
-    from pde_policylearning_torch.data import generate_channel_dataset
+    from pde_policylearning_torch.data import (PDEDataset,
+                                               generate_channel_dataset)
     from pde_policylearning_torch.envs import NSControlEnv
     from pde_policylearning_torch.envs import channel_flow as cf
     from pde_policylearning_torch.envs import poisson_cuda as pc
     from pde_policylearning_torch.envs import rk3_cuda as rk
     from pde_policylearning_torch.envs.control_env import \
         default_snapshot_path
+    from pde_policylearning_torch.models import FNO2dObserver
     from pde_policylearning_torch.native import cuda_build
+    from pde_policylearning_torch.ops import factorized, fourier
+    from pde_policylearning_torch.ops import spectral_cuda as sc
     from pde_policylearning_torch.utils import set_solver_precision
 
     # 1. device -------------------------------------------------------------
@@ -118,8 +142,12 @@ def main() -> int:
         f"{cuda_build.library_path().name}")
     regs = [int(w.split()[0]) for w in
             cuda_build.build_log.split("Used ")[1:]]
-    spills = [ln for ln in cuda_build.build_log.splitlines()
-              if "spill" in ln and " 0 bytes spill stores" not in ln]
+    spills, fn_name = [], "?"
+    for ln in cuda_build.build_log.splitlines():
+        if "Function properties for" in ln:
+            fn_name = ln.split("Function properties for")[1].strip()
+        elif "spill" in ln and " 0 bytes spill stores" not in ln:
+            spills.append(f"{fn_name}: {ln.strip()}")
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
         f"registers, spilling: {spills or 'none'}")
 
@@ -133,18 +161,102 @@ def main() -> int:
     kst = rk.state_to_kstate(state)
     report = {}
 
-    def entry(name, source, replaces, out, ref, fn_kernel, fn_plain):
+    # the card's published peaks: fp32 outside the tensor cores, HBM3
+    PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+    n, m = Ny - 1, Ny - 2
+    F2 = 2 * Nx * (Nz // 2 + 1)
+    field = (Ny + 1) * C          # one U or W field; V has one row less
+
+    def gemm(M, N, K):
+        return 2 * M * N * K
+
+    def work(name, B=1, as_built=False):
+        """(operations, bytes) of one call of an env kernel for B envs,
+        from the shapes: what the function needs, not what the kernel
+        spends.  The x/z transforms are 2-D real FFTs of Nx x Nz planes,
+        2.5 N log2 N operations each for N = Nx Nz points (half the
+        5 N log2 N of a complex FFT); the eigen-solve products are counted
+        exactly; the stencil passes by the operations per point counted in
+        csrc/common.cuh (momentum RHS of three fields 175, RK update 8,
+        divergence 8, correction 10, residual 6).  Bytes: every input
+        (state, actuation, the cached eigen-solve constants) read once,
+        every output written once, 4 bytes each; scratch does not count.
+        `as_built` counts the transforms as the kernels compute them,
+        dense products with the (Nx Nz, F2) Kronecker DFT matrices, which
+        are then inputs too: the kernels' own cost, no bound."""
+        refine = grid.refine_steps
+        mode00 = 2 * gemm(n, 1, n)           # Pinv00 on the re and im columns
+
+        def fft2(rows, forward=True):        # `rows` planes, either direction
+            if as_built:
+                return gemm(rows, F2, C) if forward else gemm(rows, C, F2)
+            return rows * 2.5 * C * math.log2(C)
+
+        def solve(k):                        # eig_solve passes, k-row basis
+            return ((1 + refine) * (2 * gemm(k, F2, k) + mode00)
+                    + refine * 6 * n * F2)
+
+        def spectral(k):                     # transform, solve, synthesis
+            return fft2(n) + solve(k) + fft2(n, False)
+
+        state = 2 * field + Ny * C           # U, V, W
+        dft = C * F2 if as_built else 0      # one DFT matrix: T2 or Ti2
+        bordered = 2 * m * m + 2 * m * F2 + n * n   # A1, B1, denom1, g, Pinv00
+        walls = 3 * m + 3 * F2                      # A13, g3
+        fwd = (175 + 8) * field + fft2(n)
+        bsolve = (mode00 + gemm(m, F2, m) + gemm(3, F2, m) + 12 * F2
+                  + fft2(2, False))
+        sub = (175 + 8) * field + 8 * n * C
+        cor = spectral(m) + 10 * field
+        # (operations per env, words per env, words of shared constants)
+        flops, per_env, shared = {
+            "poisson": (spectral(n), 2 * n * C,
+                        2 * dft + 3 * n * n + n * F2),
+            "boundary_fwd": (fwd, state + n * F2, dft),
+            "boundary_solve": (bsolve, n * F2 + 2 * C,
+                               m * m + m * F2 + walls + n * n + dft),
+            # stage 1: U0, V0, W0 are U, V, W; the RHS fields are written
+            "rk3_substage": (sub, state + 2 * C + 2 * state + n * C, 0),
+            "rk3_solve_correct": (cor, n * C + 2 * state + 2 * C,
+                                  2 * dft + bordered),
+            "rk3_fullstep": (3 * (sub + cor) + 3 * n * C + fwd + bsolve,
+                             2 * state + 4 * C,
+                             2 * dft + bordered + walls),
+            "boundary_batched": (fwd + bsolve, state + 2 * C,
+                                 2 * dft + m * m + m * F2 + walls
+                                 + n * n),
+        }[name]
+        return B * flops, 4 * (B * per_env + shared)
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def entry(name, source, replaces, out, ref, fn_kernel, fn_plain,
+              flops_bytes, fn_library=None, as_built=None):
         out, ref = zip(*((a, b) for a, b in zip(out, ref) if b is not None))
+        bound_ms, bound_by = bound(*flops_bytes)
         report[name] = dict(
             name=name, route="cuda",
             source=f"pde_policylearning_torch/csrc/{source}",
-            replaces=f"pde_policylearning_tpu/envs/{replaces}",
+            replaces=f"pde_policylearning_tpu/{replaces}",
             max_abs_err=max(float((a.double() - b.double()).abs().max())
                             for a, b in zip(out, ref)),
-            ms=cuda_ms(fn_kernel), plain_ms=cuda_ms(fn_plain))
-        log(f"  {name}: {report[name]['ms']:.4f} ms "
-            f"(plain {report[name]['plain_ms']:.4f} ms), max abs err "
-            f"{report[name]['max_abs_err']:.3e}")
+            ms=cuda_ms(fn_kernel), plain_ms=cuda_ms(fn_plain),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms(fn_library) if fn_library else None,
+            operations=flops_bytes[0], bytes=flops_bytes[1])
+        r = report[name]
+        if as_built:                    # the kernel's own cost, no bound
+            r["operations_as_built"], r["bytes_as_built"] = as_built
+            r["as_built_ms"] = bound(*as_built)[0]
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.5f} ms by {bound_by}, library "
+            f"{r['library_ms']}), max abs err {r['max_abs_err']:.3e}; "
+            f"{flops_bytes[0] / 1e6:.3f} MFLOP, {flops_bytes[1] / 1e6:.3f} "
+            "MB" + (f"; as built {as_built[0] / 1e6:.3f} MFLOP, "
+                    f"{as_built[1] / 1e6:.3f} MB" if as_built else ""))
 
     log("poisson (env construction: cal_pressure right-hand side)")
     rhs = cf._pressure_rhs(grid, state)
@@ -158,9 +270,10 @@ def main() -> int:
     exact = pc.poisson_solve_plain(grid64, rhs.double())
     log(f"  against float64: kernel {rel(out, exact):.3e}, "
         f"plain {rel(ref, exact):.3e}")
-    entry("poisson", "poisson.cu", "poisson_pallas.py:76", [out], [ref],
+    entry("poisson", "poisson.cu", "envs/poisson_pallas.py:76", [out], [ref],
           lambda: pc.poisson_solve_kernel(grid, rhs),
-          lambda: pc.poisson_solve_plain(grid, rhs))
+          lambda: pc.poisson_solve_plain(grid, rhs), work("poisson"),
+          as_built=work("poisson", as_built=True))
 
     log("boundary pair (first observation)")
     dP1 = state.dPdx.reshape(1)
@@ -171,12 +284,16 @@ def main() -> int:
     p_p = rk.boundary_solve_plain(grid, t_p)
     check("p1", rel(p_k[0], p_p[0]), 2e-5)
     check("p2", rel(p_k[1], p_p[1]), 2e-5)
-    entry("boundary_fwd", "boundary.cu", "rk3_pallas.py:351", [t_k], [t_p],
+    entry("boundary_fwd", "boundary.cu", "envs/rk3_pallas.py:351", [t_k],
+          [t_p],
           lambda: rk.boundary_fwd_kernel(grid, kst.U, kst.V, kst.W, dP1),
-          lambda: rk.boundary_fwd_plain(grid, kst.U, kst.V, kst.W, dP1))
-    entry("boundary_solve", "boundary.cu", "rk3_pallas.py:408", [p_k],
+          lambda: rk.boundary_fwd_plain(grid, kst.U, kst.V, kst.W, dP1),
+          work("boundary_fwd"),
+          as_built=work("boundary_fwd", as_built=True))
+    entry("boundary_solve", "boundary.cu", "envs/rk3_pallas.py:408", [p_k],
           [p_p], lambda: rk.boundary_solve_kernel(grid, t_p),
-          lambda: rk.boundary_solve_plain(grid, t_p))
+          lambda: rk.boundary_solve_plain(grid, t_p), work("boundary_solve"),
+          as_built=work("boundary_solve", as_built=True))
 
     def step_args(states):
         def cat(name):
@@ -258,9 +375,10 @@ def main() -> int:
             log("  against float64: " + ", ".join(
                 f"{nm} kernel {e_k:.3e} plain {e_p:.3e}" for nm, (e_k, e_p)
                 in f64_errors(args, out, ref).items()))
-    entry("rk3_fullstep", "rk3_fullstep.cu", "rk3_pallas.py:1058",
+    entry("rk3_fullstep", "rk3_fullstep.cu", "envs/rk3_pallas.py:1058",
           out1, ref1, lambda: rk.env_step_full_kb_kernel(*args1),
-          lambda: rk.env_step_full_kb_plain(*args1))
+          lambda: rk.env_step_full_kb_plain(*args1), work("rk3_fullstep"),
+          as_built=work("rk3_fullstep", as_built=True))
 
     def check_stages(args, tag):
         """Kernels A and B on each substage and the mass-flow kernels
@@ -309,12 +427,14 @@ def main() -> int:
 
     log("kernels A and B, each substage, from the state after 50 steps")
     a0, b0 = check_stages(args1, "B=1")
-    entry("rk3_substage", "rk3_staged.cu", "rk3_pallas.py:199", a0[1],
+    entry("rk3_substage", "rk3_staged.cu", "envs/rk3_pallas.py:199", a0[1],
           a0[2], lambda: rk.substage_kernel(*a0[0]),
-          lambda: rk.substage_plain(*a0[0]))
-    entry("rk3_solve_correct", "rk3_staged.cu", "rk3_pallas.py:319", b0[1],
-          b0[2], lambda: rk.solve_correct_kernel(*b0[0]),
-          lambda: rk.solve_correct_plain(*b0[0]))
+          lambda: rk.substage_plain(*a0[0]), work("rk3_substage"),
+          as_built=work("rk3_substage", as_built=True))
+    entry("rk3_solve_correct", "rk3_staged.cu", "envs/rk3_pallas.py:319",
+          b0[1], b0[2], lambda: rk.solve_correct_kernel(*b0[0]),
+          lambda: rk.solve_correct_plain(*b0[0]), work("rk3_solve_correct"),
+          as_built=work("rk3_solve_correct", as_built=True))
 
     # phase 5 runs every kernel at B = 8 (packed columns, per-env dPdx and
     # mass flow); hold each one there too
@@ -329,10 +449,11 @@ def main() -> int:
                                                               W8, dP8))
     check("B=8 p1", rel(p_k[0], p_p[0]), 2e-5)
     check("B=8 p2", rel(p_k[1], p_p[1]), 2e-5)
-    entry("boundary_batched", "boundary.cu", "rk3_pallas.py:426", [p_k],
+    entry("boundary_batched", "boundary.cu", "envs/rk3_pallas.py:426", [p_k],
           [p_p], lambda: rk.boundary_kernel(grid, U8, V8, W8, dP8),
           lambda: rk.boundary_solve_plain(grid, rk.boundary_fwd_plain(
-              grid, U8, V8, W8, dP8)))
+              grid, U8, V8, W8, dP8)), work("boundary_batched", B8),
+          as_built=work("boundary_batched", B8, as_built=True))
 
     log("staged step (rk3_step_k + wall pair) against kernel D, 3 steps")
     sa = sb = st_p
@@ -393,6 +514,121 @@ def main() -> int:
     except RuntimeError as e:
         if "passes no gradient" not in str(e):
             raise
+
+    log("corner contraction (the observer's spectral convolutions)")
+
+    def corner_inputs(R, B, M2, I, O, seed=0):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return [torch.randn(sh, generator=g, device=dev) for sh in
+                [(R, B, M2, I), (R, B, M2, I), (R, M2, I, O), (R, M2, I, O)]]
+
+    def corner_work(R, B, M2, I, O):
+        return (8 * R * M2 * B * I * O,
+                4 * (2 * R * B * M2 * I + 2 * R * M2 * I * O
+                     + 2 * R * B * M2 * O))
+
+    def corner_grads(fn, args):
+        args = [a.clone().requires_grad_() for a in args]
+        or_, oi_ = fn(*args)
+        return torch.autograd.grad((or_ ** 2).sum() + (or_ * oi_).sum(), args)
+
+    serving, training = (12, 1, 6, 32, 32), (12, 20, 6, 32, 32)
+    # one fp32 sum of <= 64 terms taken in another order
+    for tag, shape in (("serving B=1", serving), ("training B=20", training),
+                       ("ragged", (4, 3, 3, 5, 6)),
+                       ("large", (24, 64, 12, 64, 64))):
+        args = corner_inputs(*shape)
+        out = sc.corner_contract_kernel(*args)
+        torch.cuda.synchronize()
+        ref = sc.corner_contract_plain(*args)
+        check(f"corner {tag} or", rel(out[0], ref[0]), 2e-6)
+        check(f"corner {tag} oi", rel(out[1], ref[1]), 2e-6)
+        if shape in (serving, training):
+            n0 = sc.corner_contract_kernel.launches
+            g_k = corner_grads(sc.corner_contract, args)
+            if sc.corner_contract_kernel.launches != n0 + 3:
+                FAILED.append(f"corner {tag}: forward + dx + dw should be 3 "
+                              "launches")
+            g_p = corner_grads(sc.corner_contract_plain, args)
+            for nm, a, b in zip(("dxr", "dxi", "dwr", "dwi"), g_k, g_p):
+                check(f"corner {tag} {nm}", rel(a, b), 2e-6)
+            x_c = torch.complex(args[0], args[1])
+            w_c = torch.complex(args[2], args[3])
+            name = "corner_contract" if shape == serving else "corner_b20"
+            entry(name, "corner_contract.cu", "ops/pallas_kernels.py:28",
+                  out, ref, lambda: sc.corner_contract_kernel(*args),
+                  lambda: sc.corner_contract_plain(*args),
+                  corner_work(*shape),
+                  lambda: torch.einsum("rbmi,rmio->rbmo", x_c, w_c))
+    b20 = report.pop("corner_b20")
+    report["corner_contract"].update(
+        {f"{k}_b20": b20[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "max_abs_err")})
+
+    log("spectral_conv_nd and FNO2dObserver(12, 12, 32): kernel route "
+        "against plain route")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    observer = FNO2dObserver(12, 12, 32, generator=gen)    # 'auto', the card
+    observer.requires_grad_(False)
+    observer_plain = FNO2dObserver(12, 12, 32, conv_backend="plain")
+    observer_plain.load_state_dict(observer.state_dict())
+    observer_plain.requires_grad_(False)
+    convs = observer.fno2d.fno_blocks.convs
+    ws = convs._layer_weights(1)
+    for B in (1, 20):
+        xb = torch.randn((B, Nx, Nz, 32), generator=gen, device=dev)
+        n0 = sc.corner_contract_kernel.launches
+        conv_k = fourier.spectral_conv_nd(xb, ws, (6, 6), fft_norm="forward",
+                                          bias=convs.bias[1])
+        if sc.corner_contract_kernel.launches != n0 + 1:
+            FAILED.append("spectral_conv_nd('auto') on the card did not "
+                          "launch the corner kernel")
+        conv_p = fourier.spectral_conv_nd(xb, ws, (6, 6), fft_norm="forward",
+                                          bias=convs.bias[1],
+                                          backend="plain")
+        check(f"spectral_conv_nd B={B}", rel(conv_k, conv_p), 1e-5)
+    # a factorized weight is not the kernel's: 'auto' contracts it as the
+    # caller's `implementation` says, with no launch, and 'kernel' raises
+    tucker = [factorized.init_factorized(gen, (32, 32, 6, 6), "tucker")
+              for _ in range(2)]
+    n0 = sc.corner_contract_kernel.launches
+    conv_t = fourier.spectral_conv_nd(xb, tucker, (6, 6),
+                                      implementation="factorized")
+    dense_t = [{"tensor": torch.view_as_real(factorized.to_dense(w))
+                .movedim(-1, 0)} for w in tucker]
+    check("spectral_conv_nd, Tucker weights on the card ('auto', plain "
+          "route) against their dense form through the kernel",
+          rel(conv_t, fourier.spectral_conv_nd(xb, dense_t, (6, 6),
+                                               backend="kernel")), 1e-5)
+    if sc.corner_contract_kernel.launches != n0 + 1:
+        FAILED.append("Tucker weights under 'auto' launched the corner "
+                      "kernel, or the legacy dense layout did not")
+    try:
+        fourier.spectral_conv_nd(xb, tucker, (6, 6), backend="kernel")
+        FAILED.append("backend='kernel' took Tucker weights")
+    except ValueError as e:
+        if "backend='kernel' requires" not in str(e):
+            raise
+    p2_real = p2_p.reshape(1, Nx, Nz)         # the wall pressure after 50 steps
+    check("observer forward on a real p2 plane",
+          rel(observer(p2_real), observer_plain(p2_real)), 1e-5)
+
+    def action_grad(model):
+        v = (-st_p.V[Ny - dp]).reshape(Nx, Nz).clone().requires_grad_()
+        loss = torch.linalg.vector_norm(model(v[None, :, :, None])) \
+            + 0.1 * torch.linalg.vector_norm(v)
+        return torch.autograd.grad(loss, v)[0]
+
+    n0 = sc.corner_contract_kernel.launches
+    g_k = action_grad(observer)
+    if sc.corner_contract_kernel.launches != n0 + 8:
+        FAILED.append("gradient through the frozen observer: expected 4 "
+                      "forward + 4 dx launches, got "
+                      f"{sc.corner_contract_kernel.launches - n0}")
+    check("observer gradient to its input", rel(g_k, action_grad(
+        observer_plain)), 1e-5)
 
     # 4. the main path ------------------------------------------------------
     log("main path: NSControlEnv(32, 130, 32) + gt, run_closed_loop 2000")
@@ -488,26 +724,107 @@ def main() -> int:
     rk.FULLSTEP = True
     log(f"  staged launches (last run): {staged_launches}")
 
-    log("generate_channel_dataset, 20 steps")
+    n_data = 100
+    log(f"generate_channel_dataset, {n_data} steps, read back by PDEDataset")
     env = NSControlEnv(Nx, Ny, Nz, detect_plane=dp, noise_scale=0.05, seed=0,
                        device=dev)
     with tempfile.TemporaryDirectory() as tmp:
-        generate_channel_dataset(tmp, 20, env=env, detect_plane=dp)
+        generate_channel_dataset(tmp, n_data, env=env, detect_plane=dp)
         files = os.listdir(tmp)
         meta = np.load(os.path.join(tmp, "metadata.npy"),
                        allow_pickle=True).item()
-        p0 = np.load(os.path.join(tmp, "P_planes_000019.npy"))
-    if len(files) != 41 or set(meta) != {"P_planes", "V_planes", "re"}:
+        p0 = np.load(os.path.join(tmp, f"P_planes_{n_data - 1:06d}.npy"))
+        dataset = PDEDataset.from_folder(tmp, range(n_data), x_range=Nx,
+                                         y_range=Nz)
+    if len(files) != 2 * n_data + 1 \
+            or set(meta) != {"P_planes", "V_planes", "re"}:
         raise AssertionError(f"dataset: {len(files)} files, keys {set(meta)}")
     if p0.shape != (Nx, Nz) or not np.isfinite(p0).all():
         raise AssertionError("dataset: bad P plane")
-    log(f"  {len(files)} files, metadata keys {sorted(meta)}")
+    planes = dataset.arrays()
+    for a, norm in zip(planes, (dataset.p_norm, dataset.v_norm)):
+        if tuple(a.shape) != (n_data, Nx, Nz, 1) or not a.is_cuda \
+                or not torch.isfinite(a).all() or float(norm.std.min()) <= 0:
+            raise AssertionError("dataset: bad normalized planes")
+    log(f"  {len(files)} files, metadata keys {sorted(meta)}; std of p "
+        f"{float(dataset.p_norm.std.mean()):.3e}, of v "
+        f"{float(dataset.v_norm.std.mean()):.3e}")
+
+    # 6. the observer-policy path -------------------------------------------
+    log("observer-policy path: FNO2dObserver(12, 12, 32) serving")
+    shaping = dict(model=observer, detect_plane=dp, p_norm=dataset.p_norm,
+                   v_norm=dataset.v_norm)
+
+    def fresh_env():
+        return NSControlEnv(Nx, Ny, Nz, detect_plane=dp, noise_scale=0.05,
+                            seed=0, device=dev)
+
+    # the two routes through the same 20 steps from the same state
+    short = []
+    for model in (observer, observer_plain):
+        e = fresh_env()
+        pol = make_policy("fno", e.grid, **{**shaping, "model": model},
+                          action_scale=0.3, action_clip=0.01)
+        short.append((run_closed_loop(e, pol, n_steps=20, log_interval=20,
+                                      detect_plane=dp, verbose=False,
+                                      collect_planes=True), e))
+    check("20 fno steps, kernel route against plain route: opV2",
+          rel(torch.as_tensor(short[0][0]["opV2"]),
+              torch.as_tensor(short[1][0]["opV2"])), 1e-4)
+    check("20 fno steps, kernel route against plain route: U",
+          rel(short[0][1].state.U, short[1][1].state.U), 1e-5)
+
+    policy_runs = {}
+    for name, n_pol, per_step, kw in (
+            ("fno", 2000, 4, dict(action_scale=0.3, action_clip=0.01)),
+            ("optimal-observer", 200, 80, dict(opt_steps=10))):
+        env = fresh_env()
+        policy = make_policy(name, env.grid, **shaping, **kw)
+        rates = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            for fn in (*every.values(), sc.corner_contract_kernel):
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = run_closed_loop(env, policy, n_steps=n_pol,
+                                  log_interval=n_pol, detect_plane=dp,
+                                  verbose=False, collect_planes=(i == 0))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if i:
+                rates.append(n_pol / dt)
+            else:
+                actions = res["opV2"]      # the warm-up run's planes
+            got = (sc.corner_contract_kernel.launches,
+                   rk.env_step_full_kb_kernel.launches)
+            if got != (per_step * n_pol, n_pol):
+                raise AssertionError(
+                    f"{name}: (corner, kernel D) launches {got} over "
+                    f"{n_pol} steps, expected {(per_step * n_pol, n_pol)}")
+            for k, v in res["series"].items():
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"{name}: non-finite {k}")
+        shear = res["series"]["drag_reduction/1_shear_stress"]
+        div = res["series"]["drag_reduction/4_1_-|divergence|"]
+        flux = np.abs(actions.mean(axis=(1, 2))).max()
+        log(f"  {name}: steps/s runs {[round(r, 2) for r in rates]} median "
+            f"{sorted(rates)[1]:.2f}  ({smi}); corner launches per run "
+            f"{got[0]} ({per_step} per step); shear last {shear[-1]:.6e}, "
+            f"max |div| {np.abs(div).max():.3e} (guard 10), max |opV2| "
+            f"{np.abs(actions).max():.3e}, max |plane mean| {flux:.1e}")
+        if flux > 1e-6:
+            raise AssertionError(f"{name}: actuation has a net flux {flux}")
+        policy_runs[name] = got[0]
 
     if FAILED:
         raise AssertionError("failed checks: " + "; ".join(FAILED))
-    for k, v in {**launches, **staged_launches}.items():
+    for k, v in {**launches, **staged_launches,
+                 "corner_contract": policy_runs["fno"]}.items():
         report[k]["launches"] = v
-    print(json.dumps({"kernels": [report[k] for k in every]}))
+    report["corner_contract"]["launches_optimal_observer"] = \
+        policy_runs["optimal-observer"]
+    print(json.dumps({"kernels": [report[k] for k in
+                                  (*every, "corner_contract")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

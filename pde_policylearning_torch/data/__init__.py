@@ -1,3 +1,3 @@
-from .channel import generate_channel_dataset
+from .channel import PDEDataset, generate_channel_dataset
 
-__all__ = ["generate_channel_dataset"]
+__all__ = ["PDEDataset", "generate_channel_dataset"]

@@ -5,16 +5,95 @@ and a metadata.npy dict of mean/std, Re and the dPdx history.
 Counterpart of `pde_policylearning_tpu/data/channel.py` for
 `generate_channel_dataset`, which writes that format by rolling out the
 port's env (replacing the reference's collection loop,
-run_control.py:236-293).  The dataset classes and loaders come with the
-observer-training slice.
+run_control.py:236-293), and for `PDEDataset`, which reads it back with
+its normalizers.  The sequence and full-field datasets and the batch
+loader come with the observer-training slice.
 """
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.normalization import NormalizerGivenMeanStd
+from ..utils.device import resolve_device
+
+
+def _load_sorted(folder, tag):
+    return [os.path.join(folder, f)
+            for f in sorted(f for f in os.listdir(folder) if tag in f)]
+
+
+@dataclass
+class PDEDataset:
+    """(p_plane, v_plane) pairs as host arrays (N, H, W) with the
+    normalizers of the folder's metadata on `device`
+    (pde_data_loader.py:8-69 semantics)."""
+    p: np.ndarray
+    v: np.ndarray
+    p_norm: NormalizerGivenMeanStd
+    v_norm: NormalizerGivenMeanStd
+
+    @classmethod
+    def from_folder(cls, data_folder, data_index, downsample_rate=1,
+                    x_range=32, y_range=32, use_patch=False, device=None,
+                    dtype=torch.float32):
+        """Load the planes `data_index` of a folder written by
+        `generate_channel_dataset` or `save_collected_dataset`.  The
+        normalizers' statistics go to `device` (None: the card) in
+        `dtype`."""
+        device = resolve_device(device)
+        meta = np.load(os.path.join(data_folder, "metadata.npy"),
+                       allow_pickle=True).tolist()
+        if "P_planes" in meta:
+            p_name, v_name = "P_planes", "V_planes"
+        elif "P_plane" in meta:
+            p_name, v_name = "P_plane", "V_plane"
+        else:
+            raise RuntimeError("Not recognized key name!")
+        p_files = _load_sorted(data_folder, p_name)
+        v_files = _load_sorted(data_folder, v_name)
+        if use_patch:
+            # each plane becomes a stack of (x_range, y_range) patches
+            # folded into the sample axis; the normalizer statistics are
+            # the patch mean (pde_data_loader.py:33-41)
+            def ds(a):
+                return a.reshape(-1, x_range, y_range)
+
+            def ds_stat(a):
+                return ds(a).mean(0)
+        else:
+            def ds(a):
+                return a[::downsample_rate,
+                         ::downsample_rate][:x_range, :y_range]
+            ds_stat = ds
+
+        def norm(name):
+            return NormalizerGivenMeanStd(*(
+                torch.as_tensor(ds_stat(np.asarray(meta[name][k]))).to(
+                    device, dtype) for k in ("mean", "std")))
+
+        p = np.stack([ds(np.load(p_files[i])) for i in data_index])
+        v = np.stack([ds(np.load(v_files[i])) for i in data_index])
+        if use_patch:  # fold the patch axis into the sample axis
+            p = p.reshape(-1, x_range, y_range)
+            v = v.reshape(-1, x_range, y_range)
+        return cls(p=p, v=v, p_norm=norm(p_name), v_norm=norm(v_name))
+
+    def __len__(self):
+        return len(self.p)
+
+    def arrays(self, dtype=None):
+        """The whole split as normalized tensors (N, H, W, 1) on the
+        normalizers' device (in their dtype unless `dtype` is given)."""
+        dev = self.p_norm.mean.device
+        dtype = dtype or self.p_norm.mean.dtype
+        p = self.p_norm.encode(torch.as_tensor(self.p).to(dev, dtype))
+        v = self.v_norm.encode(torch.as_tensor(self.v).to(dev, dtype))
+        return p[..., None], v[..., None]
 
 
 def generate_channel_dataset(out_folder: str, n_steps: int,

@@ -603,9 +603,11 @@ def gt_control(state: ChannelState, detect_plane: int):
 
 def rand_control(generator: torch.Generator, shape, scale: float = 0.01,
                  dtype=torch.float32, device=None):
-    """Random actuation (matlab compute_opposition.m: 0.01*rand)."""
-    return scale * torch.rand(shape, generator=generator, dtype=dtype,
-                              device=device)
+    """Random actuation (matlab compute_opposition.m: 0.01*rand), on
+    `device` or, by default, on the generator's device."""
+    return scale * torch.rand(
+        shape, generator=generator, dtype=dtype,
+        device=generator.device if device is None else device)
 
 
 # ---------------------------------------------------------------------------

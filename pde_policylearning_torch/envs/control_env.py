@@ -2,10 +2,10 @@
 surface), on the port's torch DNS core.
 
 Counterpart of `pde_policylearning_tpu/envs/control_env.py:NSControlEnv`.
-The state lives on `device` between steps; on a CUDA device the Poisson
-solves, the wall pressures and the env step go through the hand-written
-kernels (see `channel_flow.py`, `rk3_cuda.py`).  `step_n` and the spin-up
-advance many steps with no host sync inside.
+The state lives on `device` (None: the card) between steps; on a CUDA
+device the Poisson solves, the wall pressures and the env step go through
+the hand-written kernels (see `channel_flow.py`, `rk3_cuda.py`).  `step_n`
+and the spin-up advance many steps with no host sync inside.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..native import cuda_build
+from ..native.cuda_build import check_cuda_f32
 
 
 @lru_cache(maxsize=8)
@@ -102,29 +103,6 @@ def poisson_consts(grid):
             "A": grid.eig_A.contiguous(), "Bf": grid.eig_B.contiguous(),
             "denom": torch.cat([denom, denom], 1).contiguous()}
     return grid.cache[key]
-
-
-def check_cuda_f32(name, a, shape, contiguous=True):
-    """Raise unless `a` is a float32 CUDA tensor of `shape` (and, where the
-    kernel reads it in place, contiguous) that needs no gradient.
-
-    A kernel writes a fresh buffer, so a gradient would be lost without a
-    word; the differentiable entries (`channel_flow.poisson_solve`,
-    `boundary_pressures`, `rk3_step`, `env_step`) call the kernels inside
-    autograd Functions, where grad mode is off."""
-    if torch.is_grad_enabled() and a.requires_grad:
-        raise RuntimeError(
-            f"{name}: a CUDA kernel passes no gradient; detach the input or "
-            "use the differentiable channel_flow entry (poisson_solve, "
-            "boundary_pressures, rk3_step, env_step)")
-    if not a.is_cuda or a.dtype != torch.float32:
-        raise ValueError(f"{name}: the CUDA kernel takes float32 CUDA "
-                         f"tensors, got {a.dtype} on {a.device}")
-    if tuple(a.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(a.shape)}")
-    if contiguous and not a.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def poisson_solve_kernel(grid, rhs):

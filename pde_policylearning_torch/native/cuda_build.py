@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"   # used when nvcc is not on PATH
@@ -62,6 +64,15 @@ class Work(ctypes.Structure):
         ("part_cap", ctypes.c_longlong)]
 
 
+class CornerDims(ctypes.Structure):
+    """Mirror of `struct CornerDims` in csrc/corner_contract.cu: the shape,
+    the element strides of the x and w operands, and the signs of their
+    imaginary parts."""
+    _fields_ = [(k, ctypes.c_int) for k in ("R", "B", "M2", "I", "O")] + [
+        ("xs", ctypes.c_longlong * 4), ("ws", ctypes.c_longlong * 4),
+        ("sgn_xi", ctypes.c_float), ("sgn_wi", ctypes.c_float)]
+
+
 _ENTRIES = {
     # dims, ops, work, Y, out, stream
     "pde_poisson_solve": [_P, _P, _P, _P, _P, _P],
@@ -78,6 +89,8 @@ _ENTRIES = {
     "pde_rk3_solve_correct": [_P] * 13,
     # dims, ops, work, U (updated in place), meanU0, dPdx, dPdx_out, stream
     "pde_rk3_massflow": [_P] * 8,
+    # corner dims, xr, xi, wr, wi, outr, outi, stream
+    "pde_corner_contract": [_P] * 8,
 }
 
 _lib = None
@@ -163,3 +176,28 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().pde_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_cuda_f32(name, a, shape, contiguous=True):
+    """Raise unless `a` is a float32 CUDA tensor of `shape` (and, where the
+    kernel reads it in place, contiguous) that needs no gradient.
+
+    A kernel writes a fresh buffer, so a gradient would be lost without a
+    word; the differentiable entries (`channel_flow.poisson_solve`,
+    `boundary_pressures`, `rk3_step`, `env_step`,
+    `spectral_cuda.corner_contract`) call the kernels inside autograd
+    Functions, where grad mode is off."""
+    if torch.is_grad_enabled() and a.requires_grad:
+        raise RuntimeError(
+            f"{name}: a CUDA kernel passes no gradient; detach the input or "
+            "use the differentiable entry (channel_flow.poisson_solve, "
+            "boundary_pressures, rk3_step, env_step; "
+            "spectral_cuda.corner_contract)")
+    if not a.is_cuda or a.dtype != torch.float32:
+        raise ValueError(f"{name}: the CUDA kernel takes float32 CUDA "
+                         f"tensors, got {a.dtype} on {a.device}")
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(a.shape)}")
+    if contiguous and not a.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

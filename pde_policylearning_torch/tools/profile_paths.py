@@ -1,16 +1,22 @@
 """Where the time goes on the staged and kernel-D paths at 32x130x32 with
 the `gt` policy: `batched_rollout` of 8 envs (100 steps) and the closed
 loop of one env (`run_closed_loop`, 200 steps), each through the staged
-kernels and through kernel D.  Each is timed unprofiled (median of three
-runs after a warm-up, host clock around work that ends in a synchronize),
-then run once under `torch.profiler`.
+kernels and through kernel D; then the observer-policy loop (`fno`, 200
+steps through kernel D): `FNO2dObserver(12, 12, 32)` with weights from a
+seeded generator and unit normalizers, action_scale 0.3, action_clip
+0.01.  Each is timed unprofiled (median of three runs after a warm-up,
+host clock around work that ends in a synchronize), then run once under
+`torch.profiler`.
 
     python -m pde_policylearning_torch.tools.profile_paths [--out DIR]
 
 Per path: ms and env-steps/s unprofiled, device ms per step (the sum of
 the profiler's device self time), the busy share (device time over the
 unprofiled wall time), device launches per step and the eight kernels
-with most device time (share %, launches per step).  Needs a CUDA card.
+with most device time (share %, launches per step); for the `fno` loop
+also the corner-contraction kernel's share of device time, its launches
+per step, and the host ms per step spent enqueuing the policy and the env
+step.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ..control import make_policy, run_closed_loop
 from ..envs import NSControlEnv
 from ..envs import channel_flow as cf
 from ..envs import rk3_cuda as rk
+from ..models import FNO2dObserver
 from . import card_name
 
 
@@ -49,13 +56,36 @@ def measure(fn, n_env_steps: int, n_steps: int):
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in ka)
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
+    corner = [e for e in ka if "corner_contract" in e.key]
     return dict(
+        corner_share=sum(e.self_device_time_total for e in corner) / dev_us,
+        corner_launches_per_step=sum(e.count for e in corner) / n_steps,
         ms_per_step=1e3 * wall / n_steps, env_steps_per_s=n_env_steps / wall,
         device_ms_per_step=dev_us / 1e3 / n_steps,
         busy_share=dev_us / 1e6 / wall,
         device_launches_per_step=sum(e.count for e in ka) / n_steps,
         top=[(e.key[:60], round(100 * e.self_device_time_total / dev_us, 1),
               round(e.count / n_steps, 1)) for e in top])
+
+
+def host_segments(env, policy, n_steps: int):
+    """Host ms per step spent enqueuing the policy and the env step, by the
+    host clock around each call in a hand-written loop with no synchronize
+    inside (the state is not written back to the env)."""
+    _, p2 = cf.boundary_pressures(env.grid, env.state)
+    st = rk.state_to_kstate(env.state)
+    t_policy = t_env = 0.0
+    torch.cuda.synchronize()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        op1, op2 = policy(st, p2, None)
+        t1 = time.perf_counter()
+        st, p2, _ = rk.env_step_k(env.grid, st, op1, op2)
+        t_policy += t1 - t0
+        t_env += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return dict(host_ms_policy=1e3 * t_policy / n_steps,
+                host_ms_env_step=1e3 * t_env / n_steps)
 
 
 def profile_paths(B: int = 8, batched_steps: int = 100,
@@ -85,6 +115,22 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
                 key = f"{name}_{'kernelD' if fullstep else 'staged'}"
                 res[key] = measure(fn, n_env, n)
                 print(key, json.dumps(res[key]), flush=True)
+        rk.FULLSTEP = True
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        observer = FNO2dObserver(12, 12, 32, generator=gen)
+        observer.requires_grad_(False)
+        fno = make_policy("fno", env.grid, model=observer, detect_plane=25,
+                          action_scale=0.3, action_clip=0.01)
+        res["B1_closed_fno_kernelD"] = measure(
+            lambda: run_closed_loop(env, fno, n_steps=closed_steps,
+                                    log_interval=closed_steps,
+                                    verbose=False),
+            closed_steps, closed_steps)
+        res["B1_closed_fno_kernelD"].update(
+            host_segments(env, fno, closed_steps))
+        print("B1_closed_fno_kernelD",
+              json.dumps(res["B1_closed_fno_kernelD"]), flush=True)
     finally:
         rk.FULLSTEP = saved
     return res

@@ -7,12 +7,15 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """Turn a device spec into a `torch.device`.
 
-    ``None`` means the CPU.  Asking for CUDA on a machine without a usable
-    card raises: the port never moves work to the CPU behind the caller's
-    back."""
-    dev = torch.device("cpu" if device is None else device)
+    ``None`` means the card (``cuda``): the port's entry points run there
+    unless the caller asks for the CPU by name.  Asking for CUDA, by name
+    or by default, on a machine without a usable card raises: the port
+    never moves work to the CPU behind the caller's back."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        raise RuntimeError(
+            f"device {dev} requested but CUDA is not available; pass "
+            "device='cpu' to run the plain versions on the CPU")
     return dev
 
 

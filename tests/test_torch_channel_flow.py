@@ -31,7 +31,8 @@ def t2n(a):
 @pytest.fixture(scope="module")
 def setup():
     jgrid = jcf.make_channel_grid(Nx=8, Ny=33, Nz=8, dtype=jnp.float64)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64,
+                               device="cpu")
     rng = np.random.default_rng(0)
     Nx, Ny, Nz = 8, 33, 8
     yg = np.asarray(jgrid.yg)
@@ -44,13 +45,14 @@ def setup():
     }
     jstate = jcf.ChannelState(**{k: jnp.asarray(v) for k, v in
                                  fields.items()})
-    state = cf.state_from_arrays(fields, dtype=torch.float64)
+    state = cf.state_from_arrays(fields, dtype=torch.float64, device="cpu")
     return jgrid, grid, jstate, state
 
 
 def test_grid_builder_matches_jax():
     jgrid = jcf.make_channel_grid(Nx=8, Ny=33, Nz=8, dtype=jnp.float64)
-    grid = cf.make_channel_grid(Nx=8, Ny=33, Nz=8, dtype=torch.float64)
+    grid = cf.make_channel_grid(Nx=8, Ny=33, Nz=8, dtype=torch.float64,
+                                device="cpu")
     for name, ref in grid_arrays(jgrid).items():
         ours = getattr(grid, name)
         if isinstance(ours, torch.Tensor):
@@ -61,7 +63,8 @@ def test_grid_builder_matches_jax():
         else:
             assert ours == ref, name
     assert grid.refine_steps == 0
-    assert cf.make_channel_grid(Nx=8, Ny=33, Nz=8).refine_steps == 1
+    assert cf.make_channel_grid(Nx=8, Ny=33, Nz=8,
+                                device="cpu").refine_steps == 1
 
 
 def test_compute_rhs_and_divergence(setup):

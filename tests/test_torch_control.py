@@ -36,7 +36,8 @@ def envs(tmp_path):
     jenv = JEnv(**SMALL, dtype=jnp.float64, noise_scale=0.02, seed=1)
     path = str(tmp_path / "state.npz")
     jenv.dump_state(path)
-    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=path)
+    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=path,
+                       device="cpu")
     return jenv, env
 
 
@@ -68,13 +69,13 @@ def test_rand_policy_runs(envs):
 
 
 def test_unported_policy_names_the_roadmap_item():
-    env_grid = NSControlEnv(**SMALL, dtype=torch.float64).grid
+    env_grid = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu").grid
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        make_policy("fno", env_grid)
+        make_policy("rno", env_grid)
 
 
 def test_divergence_guard():
-    env = NSControlEnv(**SMALL, dtype=torch.float64)
+    env = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu")
 
     def bad_policy(state, p2, generator):
         big = 1e4 * torch.ones((8, 8), dtype=state.U.dtype)
@@ -88,7 +89,8 @@ def test_divergence_guard():
 def test_bench_grid_from_snapshot_matches_jax():
     """Two gt steps at 32x130x32 from the packaged snapshot, float64."""
     jenv = JEnv(32, 130, 32, detect_plane=25, dtype=jnp.float64)
-    env = NSControlEnv(32, 130, 32, detect_plane=25, dtype=torch.float64)
+    env = NSControlEnv(32, 130, 32, detect_plane=25, dtype=torch.float64,
+                       device="cpu")
     np.testing.assert_array_equal(env.U, jenv.U)
     ref = jrun(jenv, jmake_policy("gt", jenv.grid, detect_plane=25),
                n_steps=2, log_interval=2, verbose=False)

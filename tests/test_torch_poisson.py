@@ -30,7 +30,8 @@ def test_plain_matches_pallas_kernel_f32():
     """Against the Pallas kernel in interpret mode, with the JAX kernel
     test's own tolerance (tests/test_pallas_kernels.py)."""
     jgrid = jcf.make_channel_grid(Nx=8, Ny=17, Nz=8, dtype=jnp.float32)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32,
+                               device="cpu")
     rhs = np.random.default_rng(3).normal(size=(8, 16, 8)).astype(np.float32)
     ref = pp._solve_impl(jgrid, jnp.asarray(rhs), interpret=True)
     out = pc.poisson_solve_plain(grid, torch.as_tensor(rhs))
@@ -40,7 +41,8 @@ def test_plain_matches_pallas_kernel_f32():
 
 def test_plain_matches_unfused_f64():
     jgrid = jcf.make_channel_grid(Nx=8, Ny=17, Nz=8, dtype=jnp.float64)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64,
+                               device="cpu")
     rhs = np.random.default_rng(4).normal(size=(8, 16, 8))
     ref = np.asarray(jcf._poisson_solve_unfused(jgrid, jnp.asarray(rhs)))
     out = cf.poisson_solve(grid, torch.as_tensor(rhs)).numpy()

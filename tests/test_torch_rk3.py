@@ -61,12 +61,13 @@ def make_fields(seed, Nx=NX, Ny=NY, Nz=NZ):
 def setup():
     jgrid = jcf.make_channel_grid(Nx=NX, Ny=NY, Nz=NZ, dtype=jnp.float32,
                                   refine_steps=1)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32,
+                               device="cpu")
     fields, ops = make_fields(0)
     return jgrid, grid, fields, ops.astype(np.float32)
 
 
-def kstate(fields, dtype=torch.float32, device=None):
+def kstate(fields, dtype=torch.float32, device="cpu"):
     return rk.state_to_kstate(cf.state_from_arrays(fields, device=device,
                                                    dtype=dtype))
 
@@ -129,7 +130,7 @@ def test_boundary_pressures_plain_matches_pallas(setup):
     assert rel(p2, p2_ref) < 2e-5
 
 
-def _packed_step(grid, fa, fb, ops_a, ops_b, device=None, plain=False):
+def _packed_step(grid, fa, fb, ops_a, ops_b, device="cpu", plain=False):
     """One B=2 packed step of envs a and b (env-major columns)."""
     sa, sb = kstate(fa, device=device), kstate(fb, device=device)
 
@@ -146,7 +147,7 @@ def _packed_step(grid, fa, fb, ops_a, ops_b, device=None, plain=False):
                 row(ops_a[0], ops_b[0]), row(ops_a[1], ops_b[1]))
 
 
-def _single_steps(grid, fa, fb, ops_a, ops_b, device=None):
+def _single_steps(grid, fa, fb, ops_a, ops_b, device="cpu"):
     outs = []
     for f, o in ((fa, ops_a), (fb, ops_b)):
         st = kstate(f, device=device)

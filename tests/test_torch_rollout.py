@@ -38,7 +38,8 @@ def setup():
     """float64 grids (JAX and port) and two valid states with actuation
     planes, from numpy seeds."""
     jgrid = jcf.make_channel_grid(Nx=NX, Ny=NY, Nz=NZ, dtype=jnp.float64)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64,
+                               device="cpu")
     made = [make_fields(s, NX, NY, NZ) for s in (0, 1)]
     return jgrid, grid, [f for f, _ in made], made[0][1]
 
@@ -55,7 +56,7 @@ def tstate(fields, batched=False):
         return cf.ChannelState(**{k: torch.as_tensor(np.stack(
             [np.asarray(f[k], np.float64) for f in fields]))
             for k in fields[0]})
-    return cf.state_from_arrays(fields, dtype=torch.float64)
+    return cf.state_from_arrays(fields, dtype=torch.float64, device="cpu")
 
 
 def dpdx_atol(state):
@@ -263,8 +264,10 @@ def env_path(tmp_path):
 
 
 def test_step_n_matches_step(env_path):
-    env1 = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path)
-    env2 = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path)
+    env1 = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path,
+                        device="cpu")
+    env2 = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path,
+                        device="cpu")
     ops = np.random.default_rng(4).normal(size=(4, 2, 8, 8)) * 1e-3
     ops -= ops.mean(axis=(2, 3), keepdims=True)
     for i in range(4):
@@ -283,7 +286,7 @@ def test_spinup_steps_matches_jax(env_path):
     jenv = JEnv(**SMALL, dtype=jnp.float64, init_cond_path=env_path,
                 spinup_steps=3)
     env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path,
-                       spinup_steps=3)
+                       spinup_steps=3, device="cpu")
     for name in ("U", "V", "W"):
         assert rel(getattr(env, name), getattr(jenv, name)) <= 1e-8, name
     np.testing.assert_allclose(env.dPdx, jenv.dPdx, rtol=1e-8)
@@ -294,7 +297,8 @@ def test_spinup_steps_matches_jax(env_path):
 
 def test_pde_loss_matches_jax(env_path):
     jenv = JEnv(**SMALL, dtype=jnp.float64, init_cond_path=env_path)
-    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path)
+    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path,
+                       device="cpu")
     assert float(env.pde_loss(env.U, env.V, env.V, env.W, env.dPdx)) == 0.0
     V2 = env.V + 0.01 * np.random.default_rng(5).normal(size=env.V.shape)
     ref = float(jenv.pde_loss(jenv.U, jenv.V, V2, jenv.W, jenv.dPdx))
@@ -343,7 +347,8 @@ def test_save_collected_dataset_matches_jax(tmp_path):
 def test_generate_channel_dataset_matches_jax(env_path, tmp_path,
                                               save_fields):
     jenv = JEnv(**SMALL, dtype=jnp.float64, init_cond_path=env_path)
-    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path)
+    env = NSControlEnv(**SMALL, dtype=torch.float64, init_cond_path=env_path,
+                       device="cpu")
     jgenerate(str(tmp_path / "ref"), 4, env=jenv, detect_plane=3,
               save_fields=save_fields)
     generate_channel_dataset(str(tmp_path / "ours"), 4, env=env,
@@ -359,7 +364,8 @@ def test_generate_channel_dataset_matches_jax(env_path, tmp_path,
 # ---------------------------------------------------------------------------
 
 def small_grid(Ny=17):
-    return cf.make_channel_grid(Nx=8, Ny=Ny, Nz=8, dtype=torch.float64)
+    return cf.make_channel_grid(Nx=8, Ny=Ny, Nz=8, dtype=torch.float64,
+                                device="cpu")
 
 
 def test_rhs_matches_loop_oracle():

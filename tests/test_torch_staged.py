@@ -39,7 +39,8 @@ def setup():
     first-stage RHS and actuation rows, all from numpy seeds."""
     jgrid = jcf.make_channel_grid(Nx=NX, Ny=NY, Nz=NZ, dtype=jnp.float32,
                                   refine_steps=1)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32,
+                               device="cpu")
     f0, ops = make_fields(0)
     f1, _ = make_fields(1)
     rng = np.random.default_rng(2)
@@ -135,7 +136,8 @@ def test_batched_staged_matches_pallas():
     C = Nx * Nz
     jgrid = jcf.make_channel_grid(Nx=Nx, Ny=Ny, Nz=Nz, dtype=jnp.float32,
                                   refine_steps=1)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float32,
+                               device="cpu")
     made = [make_fields(s, Nx, Ny, Nz) for s in (3, 4, 5)]
     fields = [f32(f) for f, _ in made]
     ops = np.stack([o.astype(np.float32).reshape(2, C) for _, o in made], 1)
@@ -238,7 +240,8 @@ def test_kernel_wrappers_refuse_inputs_that_need_grad(setup, name):
 @pytest.fixture(scope="module")
 def f64_setup():
     jgrid = jcf.make_channel_grid(Nx=NX, Ny=NY, Nz=NZ, dtype=jnp.float64)
-    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64)
+    grid = cf.grid_from_arrays(grid_arrays(jgrid), dtype=torch.float64,
+                               device="cpu")
     fields, ops = make_fields(6)
     return jgrid, grid, fields, ops
 
