@@ -13,18 +13,29 @@ result):
      larger of its operations over 67 TFLOP/s (fp32 outside the tensor
      cores) and its bytes over 3.35 TB/s, both counted from the shapes as
      the function needs them (`work` below: the x/z transforms as FFTs),
-     with the cost of the kernel as built (dense DFT products) beside it;
+     with the cost of the kernel as built beside it (the in-kernel FFTs'
+     own count) and its time with the transforms forced onto the dense DFT
+     products of a grid that is no power of two;
+     the x/z transform kernels alone against the T2/Ti2 products and
+     against float64 at 32x130x32, at 16x18x64 and at 24x18x20 (which
+     takes the DFT products), B = 1 and 3, the route printed;
      Kernels A and B (the staged step, each substage) and the mass-flow
      kernels at B = 1 and B = 8, the whole staged step and kernel D at
      B = 8, and kernel C (the batched wall pressures, B = 8), from the
      developed states of 50 kernel-D steps; the staged step against
-     kernel D over three steps; the gradient through projection_step on
+     kernel D over three steps; the Poisson kernel and kernel B on three
+     small ragged grids; the gradient through projection_step on
      the card against the plain version's; env_step with a state that
      needs a gradient, and the rollouts refusing one;
-     the corner-contraction kernel against its plain version at the
-     observer's serving shape (R 12, B 1, M2 6, I = O = 32), its training
-     batch (B 20), a ragged and a large shape, its gradients through the
-     autograd Function, `spectral_conv_nd` and the full-width
+     the fused corner entry (gather, contraction and scatter in one
+     launch) against its plain version at the observer's serving shape
+     (B 1, 32 x 17 spectrum, 2 x 6 x 6 modes, I = O = 32), its training
+     batch (B 20), the legacy weight layout, ragged and wide shapes:
+     forward, the gradient to x (the adjoint entry) and the gradients
+     through its autograd Function; the strided entry behind
+     `corner_contract` at its four shapes with its gradients;
+     `spectral_conv_nd` (also with output sizes other than the input's)
+     and the full-width
      `FNO2dObserver(12, 12, 32)` (forward, and the gradient to its input)
      kernel route against plain route, and a 20-step `fno` closed loop on
      both routes;
@@ -41,9 +52,9 @@ result):
      with weights from a seeded generator on the card, make_policy('fno',
      action_scale 0.3, action_clip 0.01) and run_closed_loop for 2000
      steps, then make_policy('optimal-observer', opt_steps 10) for 200
-     steps, one warm-up and three timed runs each; the corner kernel's
-     launch count over exactly one timed run must be 4 per `fno` step and
-     80 per `optimal-observer` step.
+     steps, one warm-up and three timed runs each; the fused corner
+     entry's launch count over exactly one timed run must be 4 per `fno`
+     step and 80 per `optimal-observer` step.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -114,6 +125,7 @@ def main() -> int:
     from pde_policylearning_torch.envs import channel_flow as cf
     from pde_policylearning_torch.envs import poisson_cuda as pc
     from pde_policylearning_torch.envs import rk3_cuda as rk
+    from pde_policylearning_torch.envs import xz_fft
     from pde_policylearning_torch.envs.control_env import \
         default_snapshot_path
     from pde_policylearning_torch.models import FNO2dObserver
@@ -160,6 +172,7 @@ def main() -> int:
                           dPdx=float(snap["dPdx"]))
     kst = rk.state_to_kstate(state)
     report = {}
+    xz_report = {}
 
     # the card's published peaks: fp32 outside the tensor cores, HBM3
     PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -181,15 +194,20 @@ def main() -> int:
         divergence 8, correction 10, residual 6).  Bytes: every input
         (state, actuation, the cached eigen-solve constants) read once,
         every output written once, 4 bytes each; scratch does not count.
-        `as_built` counts the transforms as the kernels compute them,
-        dense products with the (Nx Nz, F2) Kronecker DFT matrices, which
-        are then inputs too: the kernels' own cost, no bound."""
+        `as_built` counts the transforms as the kernels compute them: the
+        in-kernel FFTs' own operations (`xz_fft.fft_flops`: radix-2
+        butterflies, two real rows a complex transform) and their twiddle
+        tables, or, with `as_built="dft"`, the dense products with the
+        (Nx Nz, F2) Kronecker DFT matrices, which are then inputs too.
+        The kernels' own cost, no bound."""
         refine = grid.refine_steps
         mode00 = 2 * gemm(n, 1, n)           # Pinv00 on the re and im columns
 
         def fft2(rows, forward=True):        # `rows` planes, either direction
-            if as_built:
+            if as_built == "dft":
                 return gemm(rows, F2, C) if forward else gemm(rows, C, F2)
+            if as_built:
+                return rows * xz_fft.fft_flops(Nx, Nz)
             return rows * 2.5 * C * math.log2(C)
 
         def solve(k):                        # eig_solve passes, k-row basis
@@ -200,7 +218,8 @@ def main() -> int:
             return fft2(n) + solve(k) + fft2(n, False)
 
         state = 2 * field + Ny * C           # U, V, W
-        dft = C * F2 if as_built else 0      # one DFT matrix: T2 or Ti2
+        # one DFT matrix (T2 or Ti2), or the two twiddle tables
+        dft = {"dft": C * F2, True: Nx + Nz}.get(as_built, 0)
         bordered = 2 * m * m + 2 * m * F2 + n * n   # A1, B1, denom1, g, Pinv00
         walls = 3 * m + 3 * F2                      # A13, g3
         fwd = (175 + 8) * field + fft2(n)
@@ -234,7 +253,7 @@ def main() -> int:
                 "operations" if t_ops >= t_bytes else "bytes")
 
     def entry(name, source, replaces, out, ref, fn_kernel, fn_plain,
-              flops_bytes, fn_library=None, as_built=None):
+              flops_bytes, fn_library=None, as_built=None, dft_B=0):
         out, ref = zip(*((a, b) for a, b in zip(out, ref) if b is not None))
         bound_ms, bound_by = bound(*flops_bytes)
         report[name] = dict(
@@ -251,12 +270,81 @@ def main() -> int:
         if as_built:                    # the kernel's own cost, no bound
             r["operations_as_built"], r["bytes_as_built"] = as_built
             r["as_built_ms"] = bound(*as_built)[0]
+        if dft_B:   # the same entry of dft_B envs, transforms as products
+            rk.kernel_args(grid, dft_B, fft=False)
+            r["ms_dft_products"] = cuda_ms(fn_kernel)
+            rk.kernel_args(grid, dft_B, fft=True)
+            log(f"  {name}: {r['ms_dft_products']:.4f} ms with the "
+                "transforms forced onto the DFT products")
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}, library "
             f"{r['library_ms']}), max abs err {r['max_abs_err']:.3e}; "
             f"{flops_bytes[0] / 1e6:.3f} MFLOP, {flops_bytes[1] / 1e6:.3f} "
             "MB" + (f"; as built {as_built[0] / 1e6:.3f} MFLOP, "
                     f"{as_built[1] / 1e6:.3f} MB" if as_built else ""))
+
+    log("x/z transforms alone: kernels against the T2/Ti2 products and "
+        "against float64")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for shape in ((Nx, Ny, Nz), (16, 18, 64), (24, 18, 20)):
+        g32 = grid if shape == (Nx, Ny, Nz) else cf.make_channel_grid(
+            *shape, device=dev)
+        g64 = cf.make_channel_grid(*shape, device=dev, dtype=torch.float64)
+        gx, gy, gz = shape
+        for B in (1, 3):
+            route = "fft" if xz_fft.fft_route(gx, gz) else "dft"
+            # the kernels run the route whose constants they were given
+            given = rk.kernel_args(g32, B).tensors
+            if ("twx" in given) != (route == "fft") or \
+                    ("T2" in given) == (route == "fft"):
+                FAILED.append(f"{shape}: the kernels' constants are not "
+                              f"those of the {route} route")
+            Y = torch.randn((gy - 1, B * gx * gz), generator=gen, device=dev)
+            P = torch.randn((B, gy - 1, 2 * gx * (gz // 2 + 1)),
+                            generator=gen, device=dev)
+            for nm, a, kern, plain, exact in (
+                    ("forward", Y, lambda a: rk.xz_forward_kernel(g32, B, a),
+                     lambda a: rk.xz_forward_plain(g32, B, a),
+                     lambda a: rk.xz_forward_plain(g64, B, a)),
+                    ("inverse", P, lambda a: rk.xz_inverse_kernel(g32, a),
+                     lambda a: rk.xz_inverse_plain(g32, a),
+                     lambda a: rk.xz_inverse_plain(g64, a))):
+                out, ref, ex = kern(a), plain(a), exact(a.double())
+                torch.cuda.synchronize()
+                e_k, e_p = rel(out, ex), rel(ref, ex)
+                log(f"  {gx}x{gy}x{gz} B={B} {nm}, route {route}: against "
+                    f"float64 kernel {e_k:.3e}, product {e_p:.3e}")
+                # one fp32 sum of Nx Nz terms in another order
+                check(f"{gx}x{gy}x{gz} B={B} {nm}: kernel against product",
+                      rel(out, ref), 2e-6)
+                if route == "fft" and e_k > e_p:
+                    FAILED.append(
+                        f"{gx}x{gy}x{gz} B={B} {nm}: the FFT kernel is "
+                        f"further from float64 ({e_k:.3e}) than the "
+                        f"product ({e_p:.3e})")
+            if shape == (Nx, Ny, Nz) and B == 1:
+                rows = Ny - 1
+                xz_report = dict(
+                    forward_ms=cuda_ms(
+                        lambda: rk.xz_forward_kernel(g32, 1, Y)),
+                    inverse_ms=cuda_ms(lambda: rk.xz_inverse_kernel(g32, P)),
+                    forward_plain_ms=cuda_ms(
+                        lambda: rk.xz_forward_plain(g32, 1, Y)),
+                    inverse_plain_ms=cuda_ms(
+                        lambda: rk.xz_inverse_plain(g32, P)),
+                    library_ms=cuda_ms(lambda: torch.fft.fft(
+                        torch.fft.rfft(Y.reshape(rows, gx, gz)), dim=1)),
+                    bound_ms=bound(rows * 2.5 * C * math.log2(C),
+                                   4 * rows * (C + F2))[0])
+                rk.kernel_args(g32, 1, fft=False)
+                xz_report["forward_ms_dft_products"] = cuda_ms(
+                    lambda: rk.xz_forward_kernel(g32, 1, Y))
+                xz_report["inverse_ms_dft_products"] = cuda_ms(
+                    lambda: rk.xz_inverse_kernel(g32, P))
+                rk.kernel_args(g32, 1, fft=True)
+                log(f"  {rows} planes of {gx}x{gz}, one wrapper call, ms: "
+                    f"{json.dumps(xz_report)}")
 
     log("poisson (env construction: cal_pressure right-hand side)")
     rhs = cf._pressure_rhs(grid, state)
@@ -273,7 +361,7 @@ def main() -> int:
     entry("poisson", "poisson.cu", "envs/poisson_pallas.py:76", [out], [ref],
           lambda: pc.poisson_solve_kernel(grid, rhs),
           lambda: pc.poisson_solve_plain(grid, rhs), work("poisson"),
-          as_built=work("poisson", as_built=True))
+          as_built=work("poisson", as_built=True), dft_B=1)
 
     log("boundary pair (first observation)")
     dP1 = state.dPdx.reshape(1)
@@ -289,11 +377,11 @@ def main() -> int:
           lambda: rk.boundary_fwd_kernel(grid, kst.U, kst.V, kst.W, dP1),
           lambda: rk.boundary_fwd_plain(grid, kst.U, kst.V, kst.W, dP1),
           work("boundary_fwd"),
-          as_built=work("boundary_fwd", as_built=True))
+          as_built=work("boundary_fwd", as_built=True), dft_B=1)
     entry("boundary_solve", "boundary.cu", "envs/rk3_pallas.py:408", [p_k],
           [p_p], lambda: rk.boundary_solve_kernel(grid, t_p),
           lambda: rk.boundary_solve_plain(grid, t_p), work("boundary_solve"),
-          as_built=work("boundary_solve", as_built=True))
+          as_built=work("boundary_solve", as_built=True), dft_B=1)
 
     def step_args(states):
         def cat(name):
@@ -378,7 +466,7 @@ def main() -> int:
     entry("rk3_fullstep", "rk3_fullstep.cu", "envs/rk3_pallas.py:1058",
           out1, ref1, lambda: rk.env_step_full_kb_kernel(*args1),
           lambda: rk.env_step_full_kb_plain(*args1), work("rk3_fullstep"),
-          as_built=work("rk3_fullstep", as_built=True))
+          as_built=work("rk3_fullstep", as_built=True), dft_B=1)
 
     def check_stages(args, tag):
         """Kernels A and B on each substage and the mass-flow kernels
@@ -425,6 +513,14 @@ def main() -> int:
             if len(out) == 5:
                 check(f"{tag} {nm} p2", rel(out[4][1], ref[4][1]), 2e-5)
 
+    built, needed = (report["rk3_fullstep"]["operations_as_built"],
+                     report["rk3_fullstep"]["operations"])
+    log(f"  kernel D operations as built {built / 1e9:.4f} GFLOP, the "
+        f"function's {needed / 1e9:.4f} GFLOP ({built / needed:.3f}x)")
+    if built > 1.3 * needed:
+        FAILED.append(f"kernel D as built does {built / needed:.2f}x the "
+                      "function's operations (limit 1.3x)")
+
     log("kernels A and B, each substage, from the state after 50 steps")
     a0, b0 = check_stages(args1, "B=1")
     entry("rk3_substage", "rk3_staged.cu", "envs/rk3_pallas.py:199", a0[1],
@@ -434,7 +530,7 @@ def main() -> int:
     entry("rk3_solve_correct", "rk3_staged.cu", "envs/rk3_pallas.py:319",
           b0[1], b0[2], lambda: rk.solve_correct_kernel(*b0[0]),
           lambda: rk.solve_correct_plain(*b0[0]), work("rk3_solve_correct"),
-          as_built=work("rk3_solve_correct", as_built=True))
+          as_built=work("rk3_solve_correct", as_built=True), dft_B=1)
 
     # phase 5 runs every kernel at B = 8 (packed columns, per-env dPdx and
     # mass flow); hold each one there too
@@ -453,7 +549,31 @@ def main() -> int:
           [p_p], lambda: rk.boundary_kernel(grid, U8, V8, W8, dP8),
           lambda: rk.boundary_solve_plain(grid, rk.boundary_fwd_plain(
               grid, U8, V8, W8, dP8)), work("boundary_batched", B8),
-          as_built=work("boundary_batched", B8, as_built=True))
+          as_built=work("boundary_batched", B8, as_built=True), dft_B=B8)
+
+    log("ragged grids: the Poisson kernel and kernel B where the eigen-"
+        "solve's column tiles straddle envs and end ragged (3x9x4: 18 "
+        "spectrum columns per env; 2x6x2: both (0,0) columns in one tile)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for shape in ((3, 9, 4), (2, 6, 2), (24, 18, 20)):
+        gs = cf.make_channel_grid(*shape, device=dev)
+        gx, gy, gz = shape
+        rhs_s = torch.randn((gx, gy - 1, gz), generator=gen, device=dev)
+        rhs_s = rhs_s - rhs_s.mean()
+        check(f"{gx}x{gy}x{gz} poisson",
+              rel(pc.poisson_solve_kernel(gs, rhs_s),
+                  pc.poisson_solve_plain(gs, rhs_s)), 2e-4)
+        for B in (1, 3):
+            cols = B * gx * gz
+
+            def rnd(rows):
+                return torch.randn((rows, cols), generator=gen, device=dev)
+            b_args = (gs, B, 0.01 * rnd(gy - 1), rnd(gy + 1), rnd(gy),
+                      rnd(gy + 1), rnd(1), rnd(1))
+            for nm, o, r in zip("UVW", rk.solve_correct_kernel(*b_args),
+                                rk.solve_correct_plain(*b_args)):
+                check(f"{gx}x{gy}x{gz} B={B} kernel B {nm}", rel(o, r), 2e-5)
 
     log("staged step (rk3_step_k + wall pair) against kernel D, 3 steps")
     sa = sb = st_p
@@ -534,7 +654,9 @@ def main() -> int:
         return torch.autograd.grad((or_ ** 2).sum() + (or_ * oi_).sum(), args)
 
     serving, training = (12, 1, 6, 32, 32), (12, 20, 6, 32, 32)
+    log("  the strided entry behind corner_contract (the weight gradient)")
     # one fp32 sum of <= 64 terms taken in another order
+    strided = {}
     for tag, shape in (("serving B=1", serving), ("training B=20", training),
                        ("ragged", (4, 3, 3, 5, 6)),
                        ("large", (24, 64, 12, 64, 64))):
@@ -555,16 +677,112 @@ def main() -> int:
                 check(f"corner {tag} {nm}", rel(a, b), 2e-6)
             x_c = torch.complex(args[0], args[1])
             w_c = torch.complex(args[2], args[3])
-            name = "corner_contract" if shape == serving else "corner_b20"
+            strided[shape[1]] = dict(
+                ms=cuda_ms(lambda: sc.corner_contract_kernel(*args)),
+                bound_ms=bound(*corner_work(*shape))[0],
+                bytes=corner_work(*shape)[1],
+                library_ms=cuda_ms(lambda: torch.einsum(
+                    "rbmi,rmio->rbmo", x_c, w_c)))
+            log(f"  strided entry at B={shape[1]}: {strided[shape[1]]}")
+
+    log("  the fused entry: corner gather, contraction and scatter in one "
+        "launch, spectrum to spectrum")
+
+    def spec_inputs(B, H, Wh, I, O, m1, m2, legacy, seed=0):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+
+        def rnd(*sh):
+            return torch.randn(sh, generator=g, device=dev)
+        x_ft = torch.complex(rnd(B, H, Wh, I), rnd(B, H, Wh, I))
+        d_ft = torch.complex(rnd(B, H, Wh, O), rnd(B, H, Wh, O))
+        ws = [{"tensor": rnd(2, I, O, m1, m2)} if legacy
+              else {"mm2": rnd(2, m1, m2, I, O)} for _ in range(2)]
+        return x_ft, d_ft, ws
+
+    def spec_work(B, H, Wh, I, O, m1, m2):
+        """The function as now defined: the two corners of the input
+        spectrum in (the output depends on nothing else of it, and the
+        kernel reads nothing else), the whole output spectrum out, both
+        corners' weights, 8 bytes a complex64; 8 operations per complex
+        multiply-add."""
+        return (8 * B * 2 * m1 * m2 * I * O,
+                8 * (B * 2 * m1 * m2 * I + B * H * Wh * O
+                     + 2 * m1 * m2 * I * O))
+
+    def spec_grads(fn, x_ft, ws, modes):
+        x_ft = x_ft.clone().requires_grad_()
+        leaves = [v.clone().requires_grad_() for w in ws for v in w.values()]
+        o = fn(x_ft, [{k: v} for w, v in zip(ws, leaves) for k in w], modes)
+        loss = (o.real ** 2).sum() + (o.real * o.imag).sum()
+        return torch.autograd.grad(loss, [x_ft, *leaves])
+
+    def cre(a):
+        return torch.view_as_real(a) if a.is_complex() else a
+
+    spec_serving = (1, Nx, Nz // 2 + 1, 32, 32, 6, 6)
+    spec_training = (20, Nx, Nz // 2 + 1, 32, 32, 6, 6)
+    for tag, shape, legacy in (
+            ("serving B=1", spec_serving, False),
+            ("training B=20", spec_training, False),
+            ("legacy layout", (2, Nx, Nz // 2 + 1, 32, 32, 6, 6), True),
+            ("ragged", (3, 9, 5, 5, 6, 4, 3), False),
+            ("ragged, legacy", (3, 9, 5, 5, 7, 3, 5), True),
+            ("wide", (2, 16, 9, 200, 300, 3, 4), False),
+            ("all ones", (1, 2, 1, 1, 1, 1, 1), False)):
+        x_ft, d_ft, ws = spec_inputs(*shape, legacy)
+        modes = shape[5:]
+        views = sc._dense_views(ws)
+        out = sc.spectral_corners_kernel(x_ft, *views)
+        dx = sc.spectral_corners_kernel(d_ft, *views, adjoint=True)
+        torch.cuda.synchronize()
+        ref = sc.spectral_corners_plain(x_ft, ws, modes)
+        dref = sc.spectral_corners_plain(
+            d_ft, [sc._adjoint_weight(v) for v in views], modes)
+        check(f"fused corners {tag}: forward", rel(cre(out), cre(ref)), 2e-6)
+        check(f"fused corners {tag}: dx (adjoint)", rel(cre(dx), cre(dref)),
+              2e-6)
+        if not bool(((out == 0) == (ref == 0)).all()):
+            FAILED.append(f"fused corners {tag}: zeros are not where the "
+                          "plain version has them")
+        n0 = (sc.spectral_corners_kernel.launches,
+              sc.corner_contract_kernel.launches)
+        g_k = spec_grads(sc.spectral_corners, x_ft, ws, modes)
+        n1 = (sc.spectral_corners_kernel.launches - n0[0],
+              sc.corner_contract_kernel.launches - n0[1])
+        if n1 != (2, 2):
+            FAILED.append(f"fused corners {tag}: forward + dx should be 2 "
+                          f"launches and dw 2 of the strided entry, got {n1}")
+        g_p = spec_grads(sc.spectral_corners_plain, x_ft, ws, modes)
+        for nm, a, b in zip(("dx", "dw low", "dw high"), g_k, g_p):
+            check(f"fused corners {tag}: {nm} through the Function",
+                  rel(cre(a), cre(b)), 2e-6)
+        if shape in (spec_serving, spec_training):
+            corners = torch.cat([x_ft[:, :6, :6], x_ft[:, -6:, :6]], 1)
+            w_c = torch.complex(*(torch.cat([v[i] for v in views])
+                                  for i in (0, 1)))
+            name = "corner_contract" if shape == spec_serving \
+                else "corner_b20"
             entry(name, "corner_contract.cu", "ops/pallas_kernels.py:28",
-                  out, ref, lambda: sc.corner_contract_kernel(*args),
-                  lambda: sc.corner_contract_plain(*args),
-                  corner_work(*shape),
-                  lambda: torch.einsum("rbmi,rmio->rbmo", x_c, w_c))
+                  [cre(out)], [cre(ref)],
+                  lambda: sc.spectral_corners_kernel(x_ft, *views),
+                  lambda: sc.spectral_corners_plain(x_ft, ws, modes),
+                  spec_work(*shape),
+                  lambda: torch.einsum("brmi,rmio->brmo", corners, w_c))
+            report[name]["adjoint_ms"] = cuda_ms(
+                lambda: sc.spectral_corners_kernel(d_ft, *views,
+                                                   adjoint=True))
     b20 = report.pop("corner_b20")
     report["corner_contract"].update(
         {f"{k}_b20": b20[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "library_ms", "max_abs_err")})
+                                      "library_ms", "max_abs_err",
+                                      "adjoint_ms")})
+    # the earlier function (stacked corner rows in, stacked rows out) and
+    # its bytes, beside the row's
+    for B, r in strided.items():
+        sfx = "" if B == 1 else "_b20"
+        report["corner_contract"].update(
+            {f"strided_entry_{k}{sfx}": v for k, v in r.items()})
 
     log("spectral_conv_nd and FNO2dObserver(12, 12, 32): kernel route "
         "against plain route")
@@ -579,21 +797,45 @@ def main() -> int:
     ws = convs._layer_weights(1)
     for B in (1, 20):
         xb = torch.randn((B, Nx, Nz, 32), generator=gen, device=dev)
-        n0 = sc.corner_contract_kernel.launches
+        n0 = sc.spectral_corners_kernel.launches
         conv_k = fourier.spectral_conv_nd(xb, ws, (6, 6), fft_norm="forward",
                                           bias=convs.bias[1])
-        if sc.corner_contract_kernel.launches != n0 + 1:
+        if sc.spectral_corners_kernel.launches != n0 + 1:
             FAILED.append("spectral_conv_nd('auto') on the card did not "
                           "launch the corner kernel")
         conv_p = fourier.spectral_conv_nd(xb, ws, (6, 6), fft_norm="forward",
                                           bias=convs.bias[1],
                                           backend="plain")
         check(f"spectral_conv_nd B={B}", rel(conv_k, conv_p), 1e-5)
+    # output sizes other than the input's (irfftn cuts or pads the spectrum)
+    for sizes in ((48, 40), (20, 24), (33, 31)):
+        conv_k, conv_p = (fourier.spectral_conv_nd(
+            xb, ws, (6, 6), fft_norm="forward", output_sizes=sizes,
+            backend=be) for be in ("kernel", "plain"))
+        if tuple(conv_k.shape) != (20, *sizes, 32):
+            FAILED.append(f"output_sizes {sizes}: shape {conv_k.shape}")
+        check(f"spectral_conv_nd output_sizes {sizes}", rel(conv_k, conv_p),
+              1e-5)
+
+    # training: the gradients to x and to the stored weights through the
+    # conv, kernel route (dx fused entry, dw strided entry) against plain
+    def conv_grads(backend):
+        xg = xb.clone().requires_grad_()
+        leaves = [v.detach().clone().requires_grad_() for w in ws
+                  for v in w.values()]
+        out = fourier.spectral_conv_nd(
+            xg, [{k: v} for w, v in zip(ws, leaves) for k in w], (6, 6),
+            fft_norm="forward", backend=backend)
+        return torch.autograd.grad((out ** 2).mean(), [xg, *leaves])
+
+    for nm, a, b in zip(("x", "w low", "w high"), conv_grads("kernel"),
+                        conv_grads("plain")):
+        check(f"spectral_conv_nd B=20 gradient to {nm}", rel(a, b), 1e-5)
     # a factorized weight is not the kernel's: 'auto' contracts it as the
     # caller's `implementation` says, with no launch, and 'kernel' raises
     tucker = [factorized.init_factorized(gen, (32, 32, 6, 6), "tucker")
               for _ in range(2)]
-    n0 = sc.corner_contract_kernel.launches
+    n0 = sc.spectral_corners_kernel.launches
     conv_t = fourier.spectral_conv_nd(xb, tucker, (6, 6),
                                       implementation="factorized")
     dense_t = [{"tensor": torch.view_as_real(factorized.to_dense(w))
@@ -602,7 +844,7 @@ def main() -> int:
           "route) against their dense form through the kernel",
           rel(conv_t, fourier.spectral_conv_nd(xb, dense_t, (6, 6),
                                                backend="kernel")), 1e-5)
-    if sc.corner_contract_kernel.launches != n0 + 1:
+    if sc.spectral_corners_kernel.launches != n0 + 1:
         FAILED.append("Tucker weights under 'auto' launched the corner "
                       "kernel, or the legacy dense layout did not")
     try:
@@ -621,12 +863,12 @@ def main() -> int:
             + 0.1 * torch.linalg.vector_norm(v)
         return torch.autograd.grad(loss, v)[0]
 
-    n0 = sc.corner_contract_kernel.launches
+    n0 = sc.spectral_corners_kernel.launches
     g_k = action_grad(observer)
-    if sc.corner_contract_kernel.launches != n0 + 8:
+    if sc.spectral_corners_kernel.launches != n0 + 8:
         FAILED.append("gradient through the frozen observer: expected 4 "
                       "forward + 4 dx launches, got "
-                      f"{sc.corner_contract_kernel.launches - n0}")
+                      f"{sc.spectral_corners_kernel.launches - n0}")
     check("observer gradient to its input", rel(g_k, action_grad(
         observer_plain)), 1e-5)
 
@@ -783,7 +1025,8 @@ def main() -> int:
         rates = []
         for i in range(4):
             torch.cuda.synchronize()
-            for fn in (*every.values(), sc.corner_contract_kernel):
+            for fn in (*every.values(), sc.spectral_corners_kernel,
+                       sc.corner_contract_kernel):
                 fn.launches = 0
             t0 = time.perf_counter()
             res = run_closed_loop(env, policy, n_steps=n_pol,
@@ -795,12 +1038,14 @@ def main() -> int:
                 rates.append(n_pol / dt)
             else:
                 actions = res["opV2"]      # the warm-up run's planes
-            got = (sc.corner_contract_kernel.launches,
-                   rk.env_step_full_kb_kernel.launches)
-            if got != (per_step * n_pol, n_pol):
+            got = (sc.spectral_corners_kernel.launches,
+                   rk.env_step_full_kb_kernel.launches,
+                   sc.corner_contract_kernel.launches)
+            if got != (per_step * n_pol, n_pol, 0):
                 raise AssertionError(
-                    f"{name}: (corner, kernel D) launches {got} over "
-                    f"{n_pol} steps, expected {(per_step * n_pol, n_pol)}")
+                    f"{name}: (fused corner entry, kernel D, strided corner "
+                    f"entry) launches {got} over {n_pol} steps, expected "
+                    f"{(per_step * n_pol, n_pol, 0)}")
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
                     raise AssertionError(f"{name}: non-finite {k}")

@@ -5,21 +5,38 @@
 // Computes what that kernel computes, per env: three RK3 substages, each
 // the momentum RHS, the RK update (coefficients (8/15, 0), (5/12, 1/4),
 // (3/4, 1/4) on (current, first-stage) RHS), the no-slip/actuation BCs, the
-// cell divergence and the projection (Kronecker DFT, the bordered 128-row
-// eigen-solve with the Schur last row and the guards, refine_steps
+// cell divergence and the projection (forward x/z transform, the bordered
+// 128-row eigen-solve with the Schur last row and the guards, refine_steps
 // refinement passes, synthesis, pressure-gradient correction, BCs); then
 // the mass-flow correction in the fixed trapezoid term order, the new
 // dPdx, and the wall pressures of the new state.
 //
-// Bound: about 2.6 GFLOP per env step, nearly all in the solve products
-// (per substage 2 * 0.29 GFLOP of transforms and 4 * 0.035 GFLOP of
-// eigen-basis products, plus the wall-pressure transform), run as fp32 FMA
-// in the shared tiled GEMM; the stencils are memory-bound and small.  One
-// env's U, V, W take ~1.6 MB, more than an SM's 227 KB of shared memory, so
-// the TPU plan of one VMEM-resident program per env has no single-block
-// equivalent: this entry enqueues ~55 launches per step with the state,
-// the RHS fields and the spectra in device memory, resident in the 50 MB
-// L2 at B = 1.  Persistent, cluster and CUDA-graph designs are later work.
+// Bound: operations.  At 32x130x32 the function needs 0.596 GFLOP per env
+// step: 0.46 GFLOP of eigen-basis products (per substage four products of
+// 2 * 128 * 128 * 1088, plus the wall rows), 0.1 GFLOP of stencils, and only
+// 0.02 GFLOP of x/z transforms when these are FFTs (2.5 N log2 N per 32x32
+// plane, seven 129-plane transforms and one of 2 planes); 8.9 us at the
+// card's 67 TFLOP/s of fp32 FMA, against 9 MB of state, RHS and constants
+// read or written (2.7 us).  The TPU ran the transforms as dense
+// Kronecker-DFT products on its idle matrix unit; carried over, they were
+// 2.0 of 2.59 GFLOP per step and three quarters of the GEMM's time.  Here
+// they are FFTs in shared memory, one block per plane (common.cuh, "x/z
+// transforms"), so the kernel does 0.60 GFLOP as built.  The eigen-basis
+// products stay fp32 FMA (no TF32: the solve NaNs the DNS at reduced
+// precision); everything between the two transforms of a solve is local
+// to a spectrum column, so one kernel per solve owns a tile of columns
+// and runs both products, the Schur finish, the (0,0) mode, the residual
+// and the refinement pass out of shared memory (common.cuh, "The
+// eigen-solve, one kernel per solve"): no split-K, no partial sums in
+// device memory.  A grid that is no power of two keeps the DFT products.
+//
+// One env's U, V, W take ~1.6 MB, more than an SM's 227 KB of shared
+// memory, so the TPU plan of one VMEM-resident program per env has no
+// single-block equivalent: this entry enqueues ~30 launches per step
+// (three per solve) with the state, the RHS fields and the spectra in
+// device memory, resident in the 50 MB L2 at B = 1.  What is left above
+// the bound is launch latency at B = 1 and the eigen products' rate at
+// large B (a persistent step and CUDA graphs are later work).
 //
 // The three substages are kernel A and kernel B of the staged step
 // (`substage` and `solve_correct` of common.cuh, the launches of

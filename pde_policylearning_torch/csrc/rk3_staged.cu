@@ -18,12 +18,15 @@
 // neighbours mostly from L1/L2; ~2 x 1.6 MB of state per env.
 //
 // Kernel B computes what _solve_correct_kernel computes: the bordered
-// eigen-solve of the divergence (Kronecker DFT, m = n-1 eigenbasis with the
-// Schur last row, the (0,0) mode through Pinv00_eq, refine_steps
+// eigen-solve of the divergence (forward x/z transform, m = n-1 eigenbasis
+// with the Schur last row, the (0,0) mode through Pinv00_eq, refine_steps
 // refinement passes, synthesis), the pressure-gradient correction and the
-// BCs.  Bound: the fp32 solve products, 2 x 0.29 GFLOP of transforms and
-// 4 x 0.035 GFLOP of eigen-basis products per env and substage, in the
-// shared tiled GEMM (fp32 FMA; no TF32, no tensor cores).
+// BCs.  Bound: operations, the 4 x 0.035 GFLOP of eigen-basis products per
+// env and substage (fp32 FMA; no TF32, no tensor cores), all in one
+// column-tiled kernel per solve; the two transforms are FFTs in shared
+// memory on a power-of-two
+// grid (7 MFLOP) and dense DFT products (2 x 0.29 GFLOP) on any other
+// (common.cuh, "x/z transforms").
 //
 // On the TPU each kernel was one VMEM-resident program per env; an env's
 // state (~1.6 MB) exceeds an SM's shared memory, so here each is a short

@@ -20,12 +20,11 @@ from . import channel_flow as cf
 
 
 def default_snapshot_path() -> Optional[str]:
-    """The developed-turbulence snapshot (Re_tau ~ 180) packaged with the
-    JAX package; read from there with numpy, not copied.  None if
+    """The developed-turbulence snapshot (Re_tau ~ 180, 32x130x32; U, V, W,
+    dPdx) packaged with this package under data/assets.  None if
     absent."""
-    path = os.path.join(os.path.dirname(__file__), "..", "..",
-                        "pde_policylearning_tpu", "data", "assets",
-                        "channel180_minchan_tpu.npz")
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "data",
+                        "assets", "channel180_minchan.npz")
     return path if os.path.exists(path) else None
 
 

@@ -6,8 +6,9 @@ forward x/z transform, the n-row eigen-solve A [(B r) / (lam + kk)], the
 regularized and equilibrated (0,0) mean mode through Pinv00_eq,
 `grid.refine_steps` refinement passes with the tridiagonal operator, and
 the inverse transform.  The plain version transforms with `torch.fft`; the
-kernel (csrc/poisson.cu) with Kronecker DFT products on the (y, x*z)
-layout, re|im side by side.  `poisson_solve` dispatches between them and is
+kernel (csrc/poisson.cu) on the (y, x*z) layout, re|im side by side, with
+FFTs in shared memory on a power-of-two grid and Kronecker DFT products on
+any other (`envs/xz_fft.py`).  `poisson_solve` dispatches between them and is
 differentiable on both devices (see `_PoissonSolve`).
 """
 from __future__ import annotations

@@ -24,6 +24,15 @@ Kernels (csrc/):
     `_boundary_kernel` ("kernel C"), the batched wall pressures.
   * `mass_flow_kernel` (rk3_staged.cu): the staged step's mass-flow
     correction, float64 in one fixed order (XLA glue in the JAX step).
+  * `xz_forward_kernel` / `xz_inverse_kernel` (xz_transforms.cu): the x/z
+    transforms every solve above runs, on their own.  On a power-of-two
+    grid they are FFTs in shared memory, on any other the products with
+    `T2` / `Ti2` through the hand-written GEMM (`xz_fft.fft_route`).  The
+    plain versions are the products.
+Between its two transforms each solve is one column-tiled kernel
+(`eig_solve_tile_kernel`, csrc/common.cuh: both eigenbasis products, the
+Schur finish, the (0,0) mode and the refinement passes on a tile of 8
+spectrum columns in shared memory).
 
 `FULLSTEP` selects kernel D or the staged path for the env step and the
 rollouts, exactly as `rk3_pallas.FULLSTEP` does (`PDE_RK3_FULLSTEP`, read
@@ -41,11 +50,14 @@ from __future__ import annotations
 import ctypes
 import os
 from dataclasses import dataclass
+from functools import cached_property
+
 import numpy as np
 import torch
 
 from ..native import cuda_build
 from . import channel_flow as cf
+from . import xz_fft
 from .poisson_cuda import check_cuda_f32, _kron_mats, poisson_consts
 
 # (c_cur, c_prev on F1): the RK3 coefficient triples [8/15],
@@ -178,8 +190,7 @@ def _boundary_consts(grid):
 
 @dataclass
 class SolveConsts:
-    T2: torch.Tensor
-    Ti2: torch.Tensor
+    grid: object           # T2, Ti2 are built from it at first use
     A1: torch.Tensor
     B1: torch.Tensor
     denom1: torch.Tensor   # (m, 2F)
@@ -200,17 +211,31 @@ class SolveConsts:
     dym: torch.Tensor
     trapw: torch.Tensor
 
+    @cached_property
+    def _kron(self):
+        return _kron_mats2(self.grid)
+
+    @property
+    def T2(self) -> torch.Tensor:
+        """(C, 2F) forward DFT matrix: the plain versions' transform, and
+        the kernels' on a grid that takes no FFT."""
+        return self._kron[0]
+
+    @property
+    def Ti2(self) -> torch.Tensor:
+        """(2F, C) real-part inverse synthesis."""
+        return self._kron[1]
+
 
 def solve_consts(grid) -> SolveConsts:
     """All constants of the kernel-layout step, once per grid."""
     key = "solve"
     if key not in grid.cache:
-        T2, Ti2 = _kron_mats2(grid)
         kk2, denom1, g2, ss2, dlm, dl, du, dd0h = _solve_consts(grid)
         A13, g3 = _boundary_consts(grid)
         dyf, dyg, dym = _row_consts(grid)
         grid.cache[key] = SolveConsts(
-            T2=T2, Ti2=Ti2, A1=grid.eig_A1.contiguous(),
+            grid=grid, A1=grid.eig_A1.contiguous(),
             B1=grid.eig_B1.contiguous(), denom1=denom1, g=g2, ss=ss2, kk=kk2,
             dd=grid.DD_diag, dl=dl, du=du, dlm=dlm, dd0h=dd0h, A13=A13,
             g3=g3, Pinv00=grid.Pinv00_eq.contiguous(), s00=grid.s00,
@@ -479,30 +504,56 @@ class KernelArgs:
         return ctypes.byref(self.work)
 
 
-def kernel_args(grid, B: int) -> KernelArgs:
+def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
     """Constants and the scratch workspace for B packed envs, built once
-    per (grid, B) with `torch.empty`; the kernels allocate nothing."""
+    per (grid, B) with `torch.empty`; the kernels allocate nothing.  The
+    x/z transforms' route is `xz_fft.fft_route` of the grid: the twiddle
+    tables (float64 rounded once to float32) go to the card for a grid
+    that takes the FFTs, the DFT matrices for any other, and the kernels
+    run the route whose constants they find.  `fft=False` builds (and
+    caches, in place of what was cached) the constants of the DFT products
+    for a grid that would take the FFTs, so that a measurement can time
+    both routes on one grid."""
     key = ("kernel_args", B)
-    if key in grid.cache:
-        return grid.cache[key]
+    if fft is None:
+        if key in grid.cache:
+            return grid.cache[key]
+        fft = xz_fft.fft_route(grid.Nx, grid.Nz)
+    elif fft and not xz_fft.fft_route(grid.Nx, grid.Nz):
+        raise ValueError(f"a {grid.Nx} x {grid.Nz} plane cannot take the "
+                         "FFT kernels (xz_fft.fft_route)")
     if grid.device.type != "cuda" or grid.dtype != torch.float32:
         raise ValueError("the CUDA kernels need a float32 grid on a CUDA "
                          f"device, got {grid.dtype} on {grid.device}")
     c = solve_consts(grid)
     pc = poisson_consts(grid)
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
+    if 5 * (Ny - 1) * 8 * 4 > xz_fft.MAX_DYNAMIC_SMEM:
+        raise ValueError(
+            f"Ny = {Ny}: the eigen-solve kernel keeps five (Ny-1, 8) float32 "
+            "tiles in a block's shared memory (Ny <= 1453)")
     C, n = Nx * Nz, Ny - 1
     F2 = 2 * Nx * (Nz // 2 + 1)
     dims = cuda_build.Dims(
         B=B, Nx=Nx, Ny=Ny, Nz=Nz, refine_steps=grid.refine_steps,
-        nu=grid.nu, dx=grid.dx, dz=grid.dz, dt=grid.dt,
-        dlm=float(c.dlm), dd0h=float(c.dd0h), dx2=grid.dx ** 2,
-        dz2=grid.dz ** 2)
+        nu=grid.nu, dx=grid.dx, dz=grid.dz, dt=grid.dt, dlm=float(c.dlm),
+        dd0h=float(c.dd0h), dx2=grid.dx ** 2, dz2=grid.dz ** 2)
+
+    def table(N):
+        return torch.as_tensor(xz_fft.twiddles(N).astype(np.float32),
+                               device=grid.device)
+
+    xz = (dict(twx=table(Nx), twz=table(Nz)) if fft
+          else dict(T2=c.T2, Ti2=c.Ti2))
     ops_t = {k: v.contiguous() for k, v in dict(
-        dyf=c.dyf, dyg=c.dyg, dym=c.dym, trapw=c.trapw, T2=c.T2, Ti2=c.Ti2,
+        dyf=c.dyf, dyg=c.dyg, dym=c.dym, trapw=c.trapw, **xz,
         A1=c.A1, B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
         A13=c.A13, g3=c.g3, A=pc["A"], Bf=pc["Bf"], denom=pc["denom"],
-        Pinv00=c.Pinv00, s00=c.s00, dd=c.dd, dl=c.dl, du=c.du).items()}
+        Pinv00=c.Pinv00, s00=c.s00, dd=c.dd, dl=c.dl, du=c.du,
+        # transposed, so that neighbouring threads of the column-tiled
+        # eigen-solve (one row each) read neighbouring addresses
+        A1T=c.A1.T, B1T=c.B1.T, AT=pc["A"].T, BfT=pc["Bf"].T,
+        Pinv00T=c.Pinv00.T).items()}
     ops = cuda_build.Ops(**{k: v.data_ptr() for k, v in ops_t.items()})
 
     def empty(*shape):
@@ -513,8 +564,8 @@ def kernel_args(grid, B: int) -> KernelArgs:
         F1u=empty(Ny + 1, B * C), F1v=empty(Ny, B * C),
         F1w=empty(Ny + 1, B * C),
         Un=empty(Ny + 1, B * C), Vn=empty(Ny, B * C), Wn=empty(Ny + 1, B * C),
-        Y=empty(n, B * C), t=empty(B, n, F2), r=empty(B, n, F2),
-        u=empty(B, n, F2), y=empty(B, n, F2), P=empty(B, n, F2),
+        Y=empty(n, B * C), t=empty(B, n, F2), u=empty(B, n, F2),
+        y=empty(B, n, F2), P=empty(B, n, F2),
         p=empty(n, B * C), p00=empty(B, n, 2), q=empty(B, 2, F2),
         dnew=empty(B),
         # split-K partial products of the solve GEMMs (csrc/common.cuh)
@@ -634,6 +685,59 @@ def env_step_full_kb_kernel(grid, B, U, V, W, dPdx, meanU0, op1, op2):
 
 env_step_full_kb_kernel.launches = 0
 
+
+def xz_forward_plain(grid, B, Y):
+    """The forward x/z transform of the rows of a packed field Y
+    (rows, B*C) -> per-env spectra (B, rows, 2F): the product with `T2`."""
+    rows = Y.shape[0]
+    return Y.reshape(rows, B, -1).permute(1, 0, 2) @ solve_consts(grid).T2
+
+
+def xz_inverse_plain(grid, P):
+    """The real-part inverse synthesis of spectra P (B, rows, 2F) -> packed
+    rows (rows, B*C): the product with `Ti2`."""
+    B, rows, _ = P.shape
+    return (P @ solve_consts(grid).Ti2).permute(1, 0, 2).reshape(rows, -1)
+
+
+def xz_forward_kernel(grid, B, Y):
+    """`xz_forward_plain` on the card (csrc/xz_transforms.cu), float32 CUDA
+    only: FFTs in shared memory or DFT products, by `xz_fft.fft_route`."""
+    rows = Y.shape[0]
+    check_cuda_f32("Y", Y, (rows, B * grid.Nx * grid.Nz))
+    args = kernel_args(grid, B)
+    t = torch.empty((B, rows, 2 * grid.Nx * (grid.Nz // 2 + 1)),
+                    dtype=torch.float32, device=Y.device)
+    err = cuda_build.load().pde_xz_forward(
+        args.dims_ref, args.ops_ref, args.work_ref, Y.data_ptr(), rows,
+        t.data_ptr(), _stream(Y))
+    cuda_build.check(err, "pde_xz_forward")
+    xz_forward_kernel.launches += 1
+    return t
+
+
+xz_forward_kernel.launches = 0
+
+
+def xz_inverse_kernel(grid, P):
+    """`xz_inverse_plain` on the card (csrc/xz_transforms.cu), float32 CUDA
+    only."""
+    B, rows = P.shape[:2]
+    check_cuda_f32("P", P, (B, rows, 2 * grid.Nx * (grid.Nz // 2 + 1)))
+    args = kernel_args(grid, B)
+    out = torch.empty((rows, B * grid.Nx * grid.Nz), dtype=torch.float32,
+                      device=P.device)
+    err = cuda_build.load().pde_xz_inverse(
+        args.dims_ref, args.ops_ref, args.work_ref, P.data_ptr(), rows,
+        out.data_ptr(), _stream(P))
+    cuda_build.check(err, "pde_xz_inverse")
+    xz_inverse_kernel.launches += 1
+    return out
+
+
+xz_inverse_kernel.launches = 0
+
+
 _FWD, _SOLVE = 1, 2
 
 
@@ -675,8 +779,6 @@ def boundary_solve_kernel(grid, t):
 
 
 boundary_solve_kernel.launches = 0
-
-
 
 
 def boundary_kernel(grid, U, V, W, dPdx):

@@ -48,11 +48,14 @@ class Dims(ctypes.Structure):
 
 
 class Ops(ctypes.Structure):
-    """Mirror of `struct Ops`: device pointers to the cached constants."""
+    """Mirror of `struct Ops`: device pointers to the cached constants.
+    T2 and Ti2 are null on a grid whose x/z transforms run as FFTs, the
+    twiddle tables twx and twz on any other; the last five are the
+    transposes the column-tiled eigen-solve reads."""
     _fields_ = [(k, _P) for k in (
         "dyf", "dyg", "dym", "trapw", "T2", "Ti2", "A1", "B1", "denom1", "g",
         "ss", "kk", "A13", "g3", "A", "Bf", "denom", "Pinv00", "s00", "dd",
-        "dl", "du")]
+        "dl", "du", "twx", "twz", "A1T", "B1T", "AT", "BfT", "Pinv00T")]
 
 
 class Work(ctypes.Structure):
@@ -60,7 +63,7 @@ class Work(ctypes.Structure):
     the size (in floats) of its split-product buffer `part`."""
     _fields_ = [(k, _P) for k in (
         "Fu", "Fv", "Fw", "F1u", "F1v", "F1w", "Un", "Vn", "Wn", "Y", "t",
-        "r", "u", "y", "P", "p", "p00", "q", "dnew", "part")] + [
+        "u", "y", "P", "p", "p00", "q", "dnew", "part")] + [
         ("part_cap", ctypes.c_longlong)]
 
 
@@ -71,6 +74,16 @@ class CornerDims(ctypes.Structure):
     _fields_ = [(k, ctypes.c_int) for k in ("R", "B", "M2", "I", "O")] + [
         ("xs", ctypes.c_longlong * 4), ("ws", ctypes.c_longlong * 4),
         ("sgn_xi", ctypes.c_float), ("sgn_wi", ctypes.c_float)]
+
+
+class SpectralDims(ctypes.Structure):
+    """Mirror of `struct SpectralDims` in csrc/corner_contract.cu: the
+    spectrum's shape, the corner sizes, the element strides of each
+    corner's weights over (kx, ky, in, out) and the sign of their imaginary
+    parts."""
+    _fields_ = [(k, ctypes.c_int) for k in ("B", "H", "Wh", "I", "O", "m1",
+                                            "m2")] + [
+        ("ws", (ctypes.c_longlong * 4) * 2), ("sgn_wi", ctypes.c_float)]
 
 
 _ENTRIES = {
@@ -91,6 +104,12 @@ _ENTRIES = {
     "pde_rk3_massflow": [_P] * 8,
     # corner dims, xr, xi, wr, wi, outr, outi, stream
     "pde_corner_contract": [_P] * 8,
+    # spectral dims, x_ft, wr low, wi low, wr high, wi high, out_ft, stream
+    "pde_spectral_corners": [_P] * 8,
+    # dims, ops, work, Y, rows, t, stream / dims, ops, work, P, rows, out,
+    # stream
+    "pde_xz_forward": [_P, _P, _P, _P, ctypes.c_int, _P, _P],
+    "pde_xz_inverse": [_P, _P, _P, _P, ctypes.c_int, _P, _P],
 }
 
 _lib = None
@@ -185,14 +204,15 @@ def check_cuda_f32(name, a, shape, contiguous=True):
     A kernel writes a fresh buffer, so a gradient would be lost without a
     word; the differentiable entries (`channel_flow.poisson_solve`,
     `boundary_pressures`, `rk3_step`, `env_step`,
-    `spectral_cuda.corner_contract`) call the kernels inside autograd
+    `spectral_cuda.corner_contract`, `spectral_corners`) call the kernels
+    inside autograd
     Functions, where grad mode is off."""
     if torch.is_grad_enabled() and a.requires_grad:
         raise RuntimeError(
             f"{name}: a CUDA kernel passes no gradient; detach the input or "
             "use the differentiable entry (channel_flow.poisson_solve, "
             "boundary_pressures, rk3_step, env_step; "
-            "spectral_cuda.corner_contract)")
+            "spectral_cuda.corner_contract, spectral_corners)")
     if not a.is_cuda or a.dtype != torch.float32:
         raise ValueError(f"{name}: the CUDA kernel takes float32 CUDA "
                          f"tensors, got {a.dtype} on {a.device}")

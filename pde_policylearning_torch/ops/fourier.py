@@ -3,13 +3,15 @@
 Counterpart of `pde_policylearning_tpu/ops/fourier.py` for the FFT route:
 rfftn -> truncated-corner complex contraction -> irfftn (reference:
 neuralop/models/spectral_convolution.py:143, 303-347), on channels-last
-`(B, d1..dN, C)` activations.  The transforms are `torch.fft`; the corner
-contraction of an eligible 2-D call on the card is the hand-written kernel
-of `ops/spectral_cuda.py`.
+`(B, d1..dN, C)` activations.  The transforms are `torch.fft`; what lies
+between them (corner gather, contraction, scatter into the output spectrum)
+is, for an eligible 2-D call on the card, one launch of the hand-written
+kernel of `ops/spectral_cuda.py`.
 """
 from __future__ import annotations
 
 import itertools
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
@@ -85,12 +87,12 @@ def kernel_eligible(x: torch.Tensor, weights: Sequence[dict],
                     for w in weights))
 
 
-def _conv_through(contract_corners, x, weights, half_modes, fft_norm, bias,
+def _conv_through(corners, x, weights, half_modes, fft_norm, bias,
                   output_sizes):
-    """The one pipeline of every route: rfftn, the corner blocks
-    `(B, m1..mN, C_in)` handed to `contract_corners(blocks, weights)`, its
-    blocks `(B, m1..mN, C_out)` placed into a zero spectrum, irfftn onto
-    the output sizes, bias."""
+    """The one pipeline of every route: rfftn, the spectrum
+    `(B, k1..kN, C_in)` handed to `corners(x_ft, weights, half_modes)`, the
+    whole output spectrum `(B, k1..kN, C_out)` it returns (the products in
+    the corners, zeros elsewhere), irfftn onto the output sizes, bias."""
     order = len(half_modes)
     spatial = x.shape[1:1 + order]
     fft_axes = tuple(range(1, 1 + order))
@@ -100,15 +102,7 @@ def _conv_through(contract_corners, x, weights, half_modes, fft_norm, bias,
         # cast back so a bf16 pipeline stays bf16 between layers
         x = x.float()
     x_ft = rfftn(x, axes=fft_axes, norm=fft_norm)
-    idxs = [(slice(None),) + corner + (slice(None),)
-            for corner in corner_slices(half_modes)]
-    blocks = contract_corners([x_ft[idx] for idx in idxs], weights)
-    out_ft = blocks[0].new_zeros(
-        (*x_ft.shape[:1 + order], blocks[0].shape[-1]))
-    # the corners are disjoint (half_modes checked by the caller), so
-    # placing them is the reference's pad-and-sum
-    for idx, block in zip(idxs, blocks):
-        out_ft[idx] = block
+    out_ft = corners(x_ft, weights, half_modes)
     out_sizes = tuple(output_sizes) if output_sizes is not None else spatial
     out = irfftn(out_ft, s=out_sizes, axes=fft_axes, norm=fft_norm)
     if bias is not None:
@@ -139,13 +133,14 @@ def spectral_conv_nd(
     half_modes: modes kept per corner per axis.
     output_sizes: spatial sizes of the output (for up/down-scaling layers);
         defaults to the input sizes.
-    backend: 'auto' (default) | 'plain' | 'kernel'.  'kernel' contracts the
-        stacked corners through the hand-written kernel
-        (`ops/spectral_cuda.py`) and raises where the call is not eligible
+    backend: 'auto' (default) | 'plain' | 'kernel'.  'kernel' goes from
+        spectrum to spectrum through the hand-written kernel
+        (`spectral_cuda.spectral_corners`: corner gather, contraction and
+        scatter in one launch) and raises where the call is not eligible
         (`kernel_eligible`); 'auto' takes the kernel for an eligible call
-        on a CUDA tensor and the plain contraction (complex einsum per
-        corner) otherwise; a CPU tensor always takes the kernel's plain
-        version.  Only the contraction differs between the routes.
+        on a CUDA tensor and the plain version (complex einsum per corner,
+        placed into a zero spectrum) otherwise; a CPU tensor always takes
+        the plain version.  Only that step differs between the routes.
     Returns (B, e1, ..., eN, C_out) real.
     """
     order = len(half_modes)
@@ -164,16 +159,14 @@ def spectral_conv_nd(
         raise ValueError(
             "backend='kernel' requires a 2-D, non-separable, "
             "unbatched-rank-4 float32 spectral conv with dense weights")
+    from . import spectral_cuda
     if backend == "kernel" or (backend == "auto" and eligible and x.is_cuda):
-        from . import spectral_cuda
-        contract_corners = spectral_cuda.contract_corners
+        corners = spectral_cuda.spectral_corners
     else:
-        def contract_corners(blocks, ws):
-            return [factorized.contract(b, w, separable=separable,
-                                        implementation=implementation)
-                    for b, w in zip(blocks, ws)]
-    return _conv_through(contract_corners, x, weights, half_modes, fft_norm,
-                         bias, output_sizes)
+        corners = partial(spectral_cuda.spectral_corners_plain,
+                          separable=separable, implementation=implementation)
+    return _conv_through(corners, x, weights, half_modes, fft_norm, bias,
+                         output_sizes)
 
 
 def spectral_conv_1d(x, weight, modes, **kw):

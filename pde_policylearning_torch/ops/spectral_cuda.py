@@ -1,7 +1,17 @@
-"""The FNO corner contraction: the plain torch version, the CUDA kernel
-that replaces `pde_policylearning_tpu/ops/pallas_kernels.py:
-_corner_contract_kernel`, the differentiable `corner_contract` over both,
-and the 2-D spectral convolution that runs through it.
+"""The FNO corner contraction: the plain torch versions, the CUDA kernels
+that replace `pde_policylearning_tpu/ops/pallas_kernels.py:
+_corner_contract_kernel` and the glue of `spectral_conv_2d_pallas` around
+it, the differentiable entries over both, and the 2-D spectral convolution
+that runs through them.
+
+Two entries.  `spectral_corners` is what a spectral conv calls between
+`rfftn` and `irfftn`: it takes the complex spectrum and the two corners'
+stored weights and returns the whole output spectrum (products in the
+corners, zeros elsewhere); on a CUDA tensor that is one allocation and one
+launch of `pde_spectral_corners`, forward and for the gradient to x.
+`corner_contract` is the JAX function of that name, on stacked corner rows
+with split real and imaginary parts (below); the weight gradient of
+`spectral_corners` runs through its kernel.
 
 `out[b,kx,ky,o] = sum_i x[b,kx,ky,i] w[i,o,kx,ky]` is a per-mode complex
 (B, I) x (I, O) product.  Complex data rides as separate real and
@@ -18,6 +28,7 @@ anything else and on an input that needs a gradient, and never falls back.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional, Sequence
 
 import torch
@@ -140,13 +151,13 @@ def corner_contract(xr, xi, wr, wi):
     return _CornerContract.apply(xr, xi, wr, wi)
 
 
-def _corner_weights(weights: Sequence[dict]):
-    """[low, high] dense weight dicts -> (wr, wi), each (R = 2*m1, M2, I,
-    O).  A mode-major leaf (2, m1, m2, I, O) is already in that layout per
-    corner; the legacy leaf (2, I, O, m1, m2) is read through a permuted
-    view.  Redone on every call (two concatenations), so a weight update
-    is never missed."""
-    parts = []
+def _dense_views(weights: Sequence[dict]):
+    """[low, high] dense weight dicts -> their leaves as (2, m1, m2, I, O)
+    views, read where they are stored: a mode-major leaf
+    `{'mm2': (2, m1, m2, I, O)}` as it is, the legacy
+    `{'tensor': (2, I, O, m1, m2)}` through a permuted view.  No copy, so
+    nothing that a weight update could leave stale."""
+    views = []
     for w in weights:
         key, lead = factorized._dense_mm_key(w)
         leaf = w.get("tensor") if key is None else w[key]
@@ -156,35 +167,200 @@ def _corner_weights(weights: Sequence[dict]):
                 "{'mm2': (2, m1, m2, I, O)} or {'tensor': (2, I, O, m1, "
                 f"m2)}}; got {factorized.factorization_of(w)} leaves "
                 f"{sorted(w)}")
-        parts.append(leaf if key is not None else leaf.permute(0, 3, 4, 1, 2))
-    return (torch.cat([p[0] for p in parts], 0),
-            torch.cat([p[1] for p in parts], 0))
+        views.append(leaf if key is not None else leaf.permute(0, 3, 4, 1, 2))
+    if len(views) != 2 or views[0].shape != views[1].shape:
+        raise ValueError("the corner contraction takes the [low, high] "
+                         "weights of one 2-D conv, of one shape")
+    return views
 
 
-def contract_corners(blocks, weights: Sequence[dict]):
-    """The [low, high] corner blocks (B, m1, M2, I) of a 2-D spectrum
-    against their dense weights, in one `corner_contract` over the stacked
-    rows; returns the two (B, m1, M2, O) complex blocks."""
-    # low rows then high rows, (B, R = 2*m1, M2, I); the kernel reads the
-    # (R, B, M2, I) views of the real and imaginary parts in place
-    corners = torch.cat(list(blocks), dim=1)
-    wr, wi = _corner_weights(weights)
-    real = corners.real
-    or_, oi_ = corner_contract(real.transpose(0, 1),
-                               corners.imag.transpose(0, 1),
-                               wr.to(real.dtype), wi.to(real.dtype))
-    out_c = torch.complex(or_, oi_).transpose(0, 1)         # (B, R, M2, O)
-    return out_c.split(blocks[0].shape[1], dim=1)
+def spectral_corners_plain(x_ft, weights: Sequence[dict],
+                           half_modes: Sequence[int], separable: bool = False,
+                           implementation: str = "reconstructed"):
+    """The step between `rfftn` and `irfftn` in plain torch, any rank, any
+    factorization, any float dtype: each corner block
+    `x_ft[:, corner]` (B, m1..mN, C_in) against its weight (a complex
+    einsum, `factorized.contract`), placed into a zero spectrum of the
+    input's spatial shape.  x_ft: (B, k1..kN, C_in) complex; returns
+    (B, k1..kN, C_out) complex.  The plain version of
+    `spectral_corners_kernel`, and what factorized weights,
+    `backend='plain'` and CPU tensors take."""
+    idxs = [(slice(None),) + corner + (slice(None),)
+            for corner in fourier.corner_slices(half_modes)]
+    blocks = [factorized.contract(x_ft[idx], w, separable=separable,
+                                  implementation=implementation)
+              for idx, w in zip(idxs, weights)]
+    out_ft = blocks[0].new_zeros((*x_ft.shape[:-1], blocks[0].shape[-1]))
+    # the corners are disjoint (half_modes checked by the caller), so
+    # placing them is the reference's pad-and-sum
+    for idx, block in zip(idxs, blocks):
+        out_ft[idx] = block
+    return out_ft
+
+
+@lru_cache(maxsize=256)
+def _spectral_plan(x_shape, w_shape, w_shape_high, ws_low, ws_high, adjoint):
+    """Shape checks and the C struct of one call signature, done once and
+    kept (there is no pointer in it): returns (struct, its byref, the
+    output spectrum's shape)."""
+    if len(x_shape) != 4 or len(w_shape) != 5 or w_shape != w_shape_high \
+            or w_shape[0] != 2:
+        raise ValueError(
+            "spectral_corners: x_ft (B, H, Wh, I) and two weight views "
+            f"(2, m1, m2, I, O) expected, got {tuple(x_shape)}, "
+            f"{tuple(w_shape)} and {tuple(w_shape_high)}")
+    B, H, Wh, C = x_shape
+    _, m1, m2, I, O = w_shape
+    strides = [ws_low[1:], ws_high[1:]]
+    if adjoint:
+        I, O = O, I
+        strides = [(a, b, o, i) for a, b, i, o in strides]
+    if C != I or min(B, I, O, m1, m2) < 1 or 2 * m1 > H or m2 > Wh:
+        raise ValueError(
+            f"spectral_corners: expected a spectrum of {I} channels with "
+            f"room for two {m1} x {m2} corners, got {tuple(x_shape)} "
+            f"against weights {tuple(w_shape)} (adjoint={adjoint})")
+    d = cuda_build.SpectralDims(B, H, Wh, I, O, m1, m2,
+                                sgn_wi=-1.0 if adjoint else 1.0)
+    d.ws[0][:] = strides[0]
+    d.ws[1][:] = strides[1]
+    return d, ctypes.byref(d), (B, H, Wh, O)
+
+
+def spectral_corners_kernel(x_ft, w_low, w_high, adjoint: bool = False):
+    """Corner gather, contraction and scatter on the card in one launch
+    (csrc/corner_contract.cu, `pde_spectral_corners`).
+
+    x_ft: contiguous complex64 CUDA spectrum (B, H, Wh, I) as `rfftn`
+    leaves it; w_low, w_high: float32 CUDA views (2, m1, m2, I, O) of the
+    two corners' stored weights, any strides.  Returns the complex64
+    output spectrum (B, H, Wh, O), the products in the corners (rows
+    [0, m1) and [H - m1, H), columns [0, m2)) and zeros elsewhere: one
+    `torch.empty`, one launch on the current stream.  `adjoint` contracts
+    with the conjugate transpose of the weights instead ((B, H, Wh, O) ->
+    (B, H, Wh, I), the gradient to x).  Raises on anything else, and on an
+    input that needs a gradient; it never falls back.  The checks are kept
+    short: the observer serves four of these calls per step and the host
+    is what its loop waits for."""
+    if torch.is_grad_enabled() and (x_ft.requires_grad or w_low.requires_grad
+                                    or w_high.requires_grad):
+        raise RuntimeError(
+            "spectral_corners: a CUDA kernel passes no gradient; detach the "
+            "inputs or use the differentiable entry "
+            "(spectral_cuda.spectral_corners)")
+    dev = x_ft.device
+    if not (x_ft.is_cuda and x_ft.dtype is torch.complex64
+            and w_low.dtype is torch.float32 and w_high.dtype is torch.float32
+            and w_low.device == dev and w_high.device == dev):
+        raise ValueError(
+            "spectral_corners: the CUDA kernel takes a complex64 spectrum "
+            "and float32 CUDA tensors for the weights, all on one card; got "
+            f"{x_ft.dtype} on {dev}, {w_low.dtype} on {w_low.device} and "
+            f"{w_high.dtype} on {w_high.device}")
+    _, dims_ref, out_shape = _spectral_plan(
+        x_ft.shape, w_low.shape, w_high.shape, w_low.stride(),
+        w_high.stride(), adjoint)
+    if not x_ft.is_contiguous() or x_ft.is_conj():
+        raise ValueError("spectral_corners: expected a contiguous spectrum")
+    out_ft = torch.empty(out_shape, dtype=torch.complex64, device=dev)
+    # real leaf at the view's pointer, imaginary leaf one stride(0) further
+    p_low, p_high = w_low.data_ptr(), w_high.data_ptr()
+    err = cuda_build.load().pde_spectral_corners(
+        dims_ref, x_ft.data_ptr(), p_low, p_low + 4 * w_low.stride(0),
+        p_high, p_high + 4 * w_high.stride(0), out_ft.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        cuda_build.check(err, "pde_spectral_corners")
+    spectral_corners_kernel.launches += 1
+    return out_ft
+
+
+spectral_corners_kernel.launches = 0
+
+
+def _adjoint_weight(view):
+    """The (2, m1, m2, I, O) view of a weight as the dict of its conjugate
+    transpose (2, m1, m2, O, I)."""
+    t = view.transpose(-1, -2)
+    return {"mm2": torch.stack([t[0], -t[1]])}
+
+
+def _corners(x_ft, w_low, w_high, adjoint=False):
+    """Kernel for a CUDA spectrum, plain version for a CPU one."""
+    if x_ft.is_cuda:
+        return spectral_corners_kernel(x_ft.contiguous(), w_low, w_high,
+                                       adjoint)
+    ws = [_adjoint_weight(w) if adjoint else {"mm2": w}
+          for w in (w_low, w_high)]
+    return spectral_corners_plain(x_ft, ws, w_low.shape[1:3])
+
+
+class _SpectralCorners(torch.autograd.Function):
+    """`spectral_corners` on the (2, m1, m2, I, O) views of the two
+    corners' weights.  Forward: one launch.  Backward: `dx_ft` is the same
+    entry on `dout_ft` with the weights read transposed and conjugated (it
+    gathers the corners of `dout_ft` and writes `dx_ft` whole); `dw` of
+    each corner is `conj(x)^T dout` over that corner's blocks through the
+    strided entry behind `corner_contract`, the channel axis in the batch
+    role.  Each runs only where an input asks for its gradient."""
+
+    @staticmethod
+    def forward(ctx, x_ft, w_low, w_high):
+        ctx.save_for_backward(x_ft, w_low, w_high)
+        return _corners(x_ft, w_low, w_high)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        x_ft, w_low, w_high = ctx.saved_tensors
+        dout = dout.resolve_conj()
+        m1, m2 = w_low.shape[1:3]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = _corners(dout, w_low, w_high, adjoint=True)
+        dws = [None, None]
+        for c, rows in enumerate((slice(None, m1), slice(-m1, None))):
+            if not ctx.needs_input_grad[1 + c]:
+                continue
+            xb, db = x_ft[:, rows, :m2], dout[:, rows, :m2]  # (B, m1, m2, .)
+            # per mode (I, B) @ (B, O); the kernel emits (m1, I, m2, O)
+            dwr, dwi = _contract(xb.real.permute(1, 3, 2, 0),
+                                 xb.imag.permute(1, 3, 2, 0),
+                                 db.real.permute(1, 2, 0, 3),
+                                 db.imag.permute(1, 2, 0, 3), conj_x=True)
+            dws[c] = torch.stack([dwr, dwi]).transpose(2, 3)
+        return dx, dws[0], dws[1]
+
+
+def spectral_corners(x_ft, weights: Sequence[dict],
+                     half_modes: Optional[Sequence[int]] = None):
+    """The step between `rfftn` and `irfftn` of a 2-D conv with dense
+    weights, differentiable: x_ft (B, H, Wh, C_in) complex against the
+    [low, high] weight dicts -> the whole output spectrum (B, H, Wh, C_out)
+    (see `spectral_corners_kernel`; on a CPU tensor the plain version and
+    its transposes).  `half_modes`, when given, must be the weights' mode
+    counts (the caller slices the weights)."""
+    w_low, w_high = _dense_views(weights)
+    if half_modes is not None and tuple(half_modes) != tuple(w_low.shape[1:3]):
+        raise ValueError(f"half_modes {tuple(half_modes)} against weights "
+                         f"of {tuple(w_low.shape[1:3])} modes")
+    real = torch.float32 if x_ft.dtype == torch.complex64 else torch.float64
+    if w_low.dtype != real or w_high.dtype != real:
+        w_low, w_high = w_low.to(real), w_high.to(real)
+    if torch.is_grad_enabled() and (x_ft.requires_grad or w_low.requires_grad
+                                    or w_high.requires_grad):
+        return _SpectralCorners.apply(x_ft, w_low, w_high)
+    return _corners(x_ft, w_low, w_high)       # serving: no graph to build
 
 
 def spectral_conv_2d_kernel(x, weights: Sequence[dict],
                             half_modes: Sequence[int],
                             fft_norm: str = "backward", bias=None,
                             output_sizes: Optional[Sequence[int]] = None):
-    """2-D spectral convolution through `corner_contract` (the counterpart
+    """2-D spectral convolution through `spectral_corners` (the counterpart
     of `spectral_conv_2d_pallas`): `ops.fourier.spectral_conv_nd`'s
-    pipeline with `contract_corners` as its contraction, with no test of
-    eligibility.  x: (B, H, W, C_in); weights: [low, high] dense weight
+    pipeline with `spectral_corners` between its transforms, with no test
+    of eligibility.  x: (B, H, W, C_in); weights: [low, high] dense weight
     dicts."""
-    return fourier._conv_through(contract_corners, x, weights, half_modes,
+    return fourier._conv_through(spectral_corners, x, weights, half_modes,
                                  fft_norm, bias, output_sizes)

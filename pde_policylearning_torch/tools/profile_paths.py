@@ -13,10 +13,15 @@ host clock around work that ends in a synchronize), then run once under
 Per path: ms and env-steps/s unprofiled, device ms per step (the sum of
 the profiler's device self time), the busy share (device time over the
 unprofiled wall time), device launches per step and the eight kernels
-with most device time (share %, launches per step); for the `fno` loop
-also the corner-contraction kernel's share of device time, its launches
-per step, and the host ms per step spent enqueuing the policy and the env
-step.  Needs a CUDA card.
+with most device time (share %, launches per step), and the launches per
+step of the hand-written GEMM, of the x/z FFT kernels and of the
+column-tiled eigen-solve (on a power-of-two grid the GEMM carries the two
+products of the wall-pressure solve only: 2 launches per env step, no
+transform); for the `fno` loop also the corner-contraction
+kernel's share of device time, its launches per step and device us per
+launch, the host ms per step spent enqueuing the policy and the env step,
+and the device launches and device us of one observer forward on its own.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -56,10 +61,20 @@ def measure(fn, n_env_steps: int, n_steps: int):
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in ka)
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
-    corner = [e for e in ka if "corner_contract" in e.key]
+    corner = [e for e in ka if "corner" in e.key]
+
+    def per_step(name):
+        return sum(e.count for e in ka if name in e.key) / n_steps
+
     return dict(
         corner_share=sum(e.self_device_time_total for e in corner) / dev_us,
         corner_launches_per_step=sum(e.count for e in corner) / n_steps,
+        corner_device_us_per_launch=(
+            sum(e.self_device_time_total for e in corner)
+            / max(1, sum(e.count for e in corner))),
+        gemm_launches_per_step=per_step("gemm_kernel"),
+        xz_fft_launches_per_step=per_step("xz_fft"),
+        eig_tile_launches_per_step=per_step("eig_solve_tile"),
         ms_per_step=1e3 * wall / n_steps, env_steps_per_s=n_env_steps / wall,
         device_ms_per_step=dev_us / 1e3 / n_steps,
         busy_share=dev_us / 1e6 / wall,
@@ -86,6 +101,26 @@ def host_segments(env, policy, n_steps: int):
     torch.cuda.synchronize()
     return dict(host_ms_policy=1e3 * t_policy / n_steps,
                 host_ms_env_step=1e3 * t_env / n_steps)
+
+
+def observer_forward(observer, Nx: int, Nz: int, n: int = 50):
+    """Device launches and device us of one observer forward on a
+    (1, Nx, Nz) plane, from `torch.profiler` over n forwards."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plane = torch.zeros((1, Nx, Nz), device="cuda")
+    observer(plane)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            observer(plane)
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(
+        device_launches_per_observer_forward=sum(e.count for e in ka) / n,
+        device_us_per_observer_forward=sum(e.self_device_time_total
+                                           for e in ka) / n)
 
 
 def profile_paths(B: int = 8, batched_steps: int = 100,
@@ -129,6 +164,8 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
             closed_steps, closed_steps)
         res["B1_closed_fno_kernelD"].update(
             host_segments(env, fno, closed_steps))
+        res["B1_closed_fno_kernelD"].update(
+            observer_forward(observer, grid.Nx, grid.Nz))
         print("B1_closed_fno_kernelD",
               json.dumps(res["B1_closed_fno_kernelD"]), flush=True)
     finally:

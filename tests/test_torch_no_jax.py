@@ -1,6 +1,9 @@
-"""The PyTorch port and its chip smoke script never import JAX."""
+"""The PyTorch port and its chip smoke script never import JAX and read no
+file of the JAX package."""
 import re
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 _IMPORT_JAX = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.MULTILINE)
@@ -13,3 +16,29 @@ def test_port_never_imports_jax():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_JAX.search(f.read_text())]
     assert not offenders, f"imports jax: {offenders}"
+
+
+def test_snapshot_is_the_ports_own_copy():
+    """The packaged Re_tau ~ 180 snapshot lies inside the port's package
+    and holds the arrays of the JAX package's file, bit for bit."""
+    from pde_policylearning_torch.envs.control_env import \
+        default_snapshot_path
+    path = Path(default_snapshot_path()).resolve()
+    assert (ROOT / "pde_policylearning_torch") in path.parents
+    ours = np.load(path)
+    theirs = np.load(ROOT / "pde_policylearning_tpu" / "data" / "assets"
+                     / "channel180_minchan_tpu.npz")
+    assert sorted(ours.files) == sorted(theirs.files)
+    for k in theirs.files:
+        np.testing.assert_array_equal(ours[k], theirs[k])
+
+
+def test_port_names_no_path_into_the_jax_package():
+    """No source of the port builds a path into pde_policylearning_tpu
+    (docstrings may cite its files as `pde_policylearning_tpu/...`)."""
+    files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    pat = re.compile(r"""["']pde_policylearning_tpu["']""")
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if pat.search(f.read_text())]
+    assert not offenders, f"build a path into the JAX package: {offenders}"

@@ -158,12 +158,17 @@ def test_contractions_per_control_step(setup, name, per_step, monkeypatch):
     """Through the kernel route in float32, every `fno` step runs 4 corner
     contractions (one per Fourier layer) and every `optimal-observer` step
     opt_steps x (4 forward + 4 backward, dx only: the observer is frozen);
-    on the card each is one launch of the kernel."""
+    on the card each is one launch of the fused corner entry, and the
+    strided entry (the weight gradient) is never reached."""
     _, _, (_, _, _), (model64, n) = setup
-    calls = []
-    real = spectral_cuda._contract
-    monkeypatch.setattr(spectral_cuda, "_contract",
-                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    calls, strided = [], []
+    real, real_contract = spectral_cuda._corners, spectral_cuda._contract
+    monkeypatch.setattr(
+        spectral_cuda, "_corners", lambda *a, adjoint=False:
+        calls.append(adjoint) or real(*a, adjoint=adjoint))
+    monkeypatch.setattr(
+        spectral_cuda, "_contract",
+        lambda *a, **k: strided.append(k) or real_contract(*a, **k))
     env = NSControlEnv(**SMALL, noise_scale=0.02, seed=1, device="cpu")
     model = FNO2dObserver(6, 6, 8, device="cpu", conv_backend="kernel")
     model.load_state_dict(model64.state_dict())
@@ -172,7 +177,8 @@ def test_contractions_per_control_step(setup, name, per_step, monkeypatch):
                          opt_steps=3, action_scale=0.3, action_clip=0.01)
     res = run_closed_loop(env, policy, n_steps=2, log_interval=2,
                           detect_plane=DP, verbose=False)
-    assert len(calls) == 2 * per_step
+    assert len(calls) == 2 * per_step and not strided
+    assert sum(calls) == (0 if name == "fno" else 2 * per_step // 2)
     for k in SCOREBOARD_KEYS:
         assert np.isfinite(res["series"][k]).all()
 

@@ -15,6 +15,7 @@ from pde_policylearning_tpu.ops import padding as jpadding
 from pde_policylearning_tpu.ops import resample as jresample
 from pde_policylearning_tpu.ops.pallas_kernels import \
     corner_contract as jcorner_contract
+from pde_policylearning_tpu.ops.pallas_kernels import spectral_conv_2d_pallas
 from pde_policylearning_torch.ops import factorized as fz
 from pde_policylearning_torch.ops import fourier, normalization, padding
 from pde_policylearning_torch.ops import resample, spectral_cuda
@@ -327,7 +328,7 @@ def test_backend_dispatch(monkeypatch):
     # 'auto' never takes the kernel route for a CPU tensor
     def boom(*a, **k):
         raise AssertionError("kernel route taken for a CPU tensor")
-    monkeypatch.setattr(spectral_cuda, "contract_corners", boom)
+    monkeypatch.setattr(spectral_cuda, "spectral_corners", boom)
     auto = fourier.spectral_conv_nd(x32, ws, (3, 3))
     np.testing.assert_array_equal(auto.numpy(), plain.numpy())
 
@@ -370,6 +371,224 @@ def test_fft_helpers_match_jax(norm, size, out):
         rtol=1e-12, atol=1e-12)
     with pytest.raises(ValueError, match="Unknown fft norm"):
         fourier.rfftn(t64(x), (1, 2), "unitary")
+
+
+# ---------------------------------------------------------------------------
+# the fused corner entry: spectrum in, whole spectrum out
+# ---------------------------------------------------------------------------
+
+# (spatial, half_modes, output_sizes): even, odd and ragged sizes, modes up
+# to the spectrum's edge, outputs larger and smaller than the input
+FUSED_CASES = [((12, 10), (4, 3), None), ((9, 7), (3, 4), (13, 9)),
+               ((8, 8), (4, 5), (6, 6)), ((5, 4), (2, 1), (5, 9))]
+
+
+def fused_case(seed, layout, spatial, half_modes, cin=3, cout=4, batch=2):
+    rng = np.random.default_rng(seed)
+    x, ws = conv_case(rng, 2, half_modes, spatial, cin=cin, cout=cout,
+                      n_lead=2 if layout == "mm2" else 0, batch=batch)
+    assert all(layout in w for w in ws)
+    return x, ws
+
+
+@pytest.mark.parametrize("layout", ["mm2", "tensor"])
+@pytest.mark.parametrize("spatial,half_modes,out_sizes", FUSED_CASES)
+def test_spectral_corners_matches_jax_conv(layout, spatial, half_modes,
+                                           out_sizes):
+    """rfftn -> `spectral_corners` (its plain version and the Function on
+    the CPU) -> irfftn against the JAX conv, float64 1e-10, for both
+    stored layouts."""
+    x, ws = fused_case(50, layout, spatial, half_modes)
+    ref = jfourier.spectral_conv_nd(jnp.asarray(x), [to_jax(w) for w in ws],
+                                    half_modes, output_sizes=out_sizes)
+    tws = [to_torch(w) for w in ws]
+    x_ft = torch.fft.rfftn(t64(x), dim=(1, 2))
+    for fn in (spectral_cuda.spectral_corners,
+               spectral_cuda.spectral_corners_plain):
+        out_ft = fn(x_ft, tws, half_modes)
+        assert out_ft.shape == (*x_ft.shape[:3], 4)
+        out = torch.fft.irfftn(out_ft, s=out_sizes or spatial, dim=(1, 2))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-10,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("layout", ["mm2", "tensor"])
+@pytest.mark.parametrize("spatial,half_modes,out_sizes", FUSED_CASES[:3])
+def test_spectral_corners_matches_pallas_route(layout, spatial, half_modes,
+                                               out_sizes):
+    """The kernel route's Python in float32 on the CPU against
+    `spectral_conv_2d_pallas` in interpret mode (a float32 kernel: the
+    tolerance of its own test, rtol 1e-4, atol 1e-5)."""
+    x, ws = fused_case(51, layout, spatial, half_modes)
+    x32 = np.asarray(x, np.float32)
+    jws = [{k: jnp.asarray(v, jnp.float32) for k, v in w.items()}
+           for w in ws]
+    ref = spectral_conv_2d_pallas(jnp.asarray(x32), jws, half_modes,
+                                  output_sizes=out_sizes, interpret=True)
+    out = spectral_cuda.spectral_conv_2d_kernel(
+        torch.as_tensor(x32), [to_torch(w, torch.float32) for w in ws],
+        half_modes, output_sizes=out_sizes)
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["mm2", "tensor"])
+def test_spectral_corners_writes_the_whole_spectrum(layout):
+    """Against a numpy oracle on an arbitrary complex spectrum: the two
+    corner products where they belong, exact zeros everywhere else;
+    1e-12."""
+    rng = np.random.default_rng(52)
+    B, H, Wh, I, O, m1, m2 = 2, 9, 5, 3, 4, 4, 3
+    _, ws = fused_case(52, layout, (H, 2 * (Wh - 1)), (m1, m2), I, O)
+    x_ft = rng.normal(size=(B, H, Wh, I)) + 1j * rng.normal(
+        size=(B, H, Wh, I))
+    ref = np.zeros((B, H, Wh, O), complex)
+    for rows, w in zip((slice(None, m1), slice(-m1, None)), ws):
+        wc = fz.to_dense(to_torch(w)).numpy()               # (I, O, m1, m2)
+        ref[:, rows, :m2] = np.einsum("bxyi,ioxy->bxyo", x_ft[:, rows, :m2],
+                                      wc)
+    out = spectral_cuda.spectral_corners(torch.as_tensor(x_ft),
+                                         [to_torch(w) for w in ws]).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
+    mask = np.ones((H, Wh), bool)
+    mask[:m1, :m2] = mask[-m1:, :m2] = False
+    assert np.all(out[:, mask] == 0)
+    with pytest.raises(ValueError, match="half_modes"):
+        spectral_cuda.spectral_corners(torch.as_tensor(x_ft),
+                                       [to_torch(w) for w in ws], (m1, 2))
+
+
+@pytest.mark.parametrize("layout", ["mm2", "tensor"])
+@pytest.mark.parametrize("spatial,half_modes,out_sizes", FUSED_CASES[:2])
+def test_spectral_corners_grads_match_jax_vjp(layout, spatial, half_modes,
+                                              out_sizes):
+    """The gradients to x and to both stored weights through the kernel
+    route on the CPU (the Function's backward: the adjoint entry for dx,
+    the strided contraction for dw) against `jax.vjp` of the JAX conv;
+    float64, rtol 1e-8."""
+    x, ws = fused_case(53, layout, spatial, half_modes)
+    cot = np.random.default_rng(54).normal(
+        size=(2, *(out_sizes or spatial), 4))
+    _, vjp = jax.vjp(
+        lambda x_, ws_: jfourier.spectral_conv_nd(
+            x_, ws_, half_modes, fft_norm="ortho", output_sizes=out_sizes),
+        jnp.asarray(x), [to_jax(w) for w in ws])
+    gx_ref, gws_ref = vjp(jnp.asarray(cot))
+    xt = t64(x).requires_grad_()
+    leaves = [t64(w[layout]).requires_grad_() for w in ws]
+    out = spectral_cuda.spectral_conv_2d_kernel(
+        xt, [{layout: v} for v in leaves], half_modes, fft_norm="ortho",
+        output_sizes=out_sizes)
+    grads = torch.autograd.grad(out, [xt, *leaves], t64(cot))
+    refs = [gx_ref, *(g[layout] for g in gws_ref)]
+    for a, b in zip(grads, refs):
+        b = np.asarray(b)
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-8,
+                                   atol=1e-8 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("frozen", ["w", "x", "none"])
+def test_spectral_corners_backward_runs_what_is_asked(frozen, monkeypatch):
+    """A frozen observer costs one adjoint pass per conv (dx) and no
+    strided contraction; training adds one per corner (dw)."""
+    passes, strided = [], []
+    real_corners, real_contract = (spectral_cuda._corners,
+                                   spectral_cuda._contract)
+    monkeypatch.setattr(
+        spectral_cuda, "_corners", lambda *a, adjoint=False:
+        passes.append(adjoint) or real_corners(*a, adjoint=adjoint))
+    monkeypatch.setattr(
+        spectral_cuda, "_contract",
+        lambda *a, **k: strided.append(k) or real_contract(*a, **k))
+    x, ws = fused_case(55, "mm2", (8, 8), (3, 3))
+    x_ft = torch.fft.rfftn(t64(x), dim=(1, 2))
+    leaves = [t64(w["mm2"]) for w in ws]
+    needs = {"w": [x_ft], "x": leaves, "none": [x_ft, *leaves]}[frozen]
+    for a in needs:
+        a.requires_grad_()
+    out = spectral_cuda.spectral_corners(x_ft, [{"mm2": v} for v in leaves])
+    assert passes == [False] and not strided
+    (out.real.sum() + (out.imag ** 2).sum()).backward()
+    assert passes == ([False] if frozen == "x" else [False, True])
+    assert len(strided) == (0 if frozen == "w" else 2)
+    assert all(k == {"conj_x": True} for k in strided)
+    for a in (x_ft, *leaves):
+        assert (a.grad is not None) == any(a is b for b in needs)
+
+
+def test_spectral_corners_reads_the_weights_where_they_are_stored():
+    """The views handed to the kernel share the leaves' storage (mode-major,
+    legacy, and mode-sliced weights alike), so there is no copy and no
+    cache: an in-place weight update shows in the next call."""
+    x, ws = fused_case(56, "mm2", (12, 10), (4, 3))
+    tws = [to_torch(w) for w in ws]
+    for w, v in zip(tws, spectral_cuda._dense_views(tws)):
+        assert v.data_ptr() == w["mm2"].data_ptr() and v.shape == (2, 4, 3,
+                                                                   3, 4)
+    _, legacy = fused_case(56, "tensor", (12, 10), (4, 3))
+    tl = [to_torch(w) for w in legacy]
+    for w, v in zip(tl, spectral_cuda._dense_views(tl)):
+        assert v.data_ptr() == w["tensor"].data_ptr()
+        assert v.shape == (2, 4, 3, 3, 4) and not v.is_contiguous()
+    sliced = [fourier.slice_weight_modes(w, (2, 2)) for w in tws]
+    for w, v in zip(tws, spectral_cuda._dense_views(sliced)):
+        assert v.data_ptr() == w["mm2"].data_ptr() and v.shape[1:3] == (2, 2)
+    x_ft = torch.fft.rfftn(t64(x), dim=(1, 2))
+    before = spectral_cuda.spectral_corners(x_ft, tws)
+    with torch.no_grad():
+        tws[0]["mm2"].mul_(2.0)
+    after = spectral_cuda.spectral_corners(x_ft, tws)
+    np.testing.assert_allclose(after[:, :4, :3].numpy(),
+                               2.0 * before[:, :4, :3].numpy(), rtol=1e-14)
+    np.testing.assert_array_equal(after[:, -4:].numpy(),
+                                  before[:, -4:].numpy())
+    with pytest.raises(ValueError, match="of one shape"):
+        spectral_cuda.spectral_corners(x_ft, [tws[0], sliced[1]])
+
+
+def test_spectral_corners_kernel_takes_cuda_complex64_only():
+    x, ws = fused_case(57, "mm2", (8, 8), (3, 3))
+    x_ft = torch.fft.rfftn(torch.as_tensor(x, dtype=torch.float32),
+                           dim=(1, 2))
+    views = spectral_cuda._dense_views([to_torch(w, torch.float32)
+                                        for w in ws])
+    with pytest.raises(ValueError, match="float32 CUDA tensors"):
+        spectral_cuda.spectral_corners_kernel(x_ft, *views)
+    with pytest.raises(ValueError, match="float32 CUDA tensors"):
+        spectral_cuda.spectral_corners_kernel(
+            x_ft.to(torch.complex128), *(v.double() for v in views))
+    with pytest.raises(RuntimeError, match="passes no gradient"):
+        spectral_cuda.spectral_corners_kernel(
+            x_ft.clone().requires_grad_(), *views)
+    with pytest.raises(RuntimeError, match="passes no gradient"):
+        spectral_cuda.spectral_corners_kernel(
+            x_ft, views[0].clone().requires_grad_(), views[1])
+    assert spectral_cuda.spectral_corners_kernel.launches == 0
+
+    # the shape checks and the struct of one call signature (a pure function)
+    def plan(x, lo, hi, adjoint=False):
+        return spectral_cuda._spectral_plan(x.shape, lo.shape, hi.shape,
+                                            lo.stride(), hi.stride(), adjoint)
+    d, _, out_shape = plan(x_ft, *views)
+    assert out_shape == (2, 8, 5, 4)
+    assert (d.B, d.H, d.Wh, d.I, d.O, d.m1, d.m2) == (2, 8, 5, 3, 4, 3, 3)
+    assert list(d.ws[0]) == list(views[0].stride()[1:]) and d.sgn_wi == 1.0
+    # the adjoint reads the same leaves with the channel strides swapped
+    d_ft = torch.zeros(out_shape, dtype=torch.complex64)
+    d, _, back_shape = plan(d_ft, *views, adjoint=True)
+    assert back_shape == tuple(x_ft.shape) and (d.I, d.O) == (4, 3)
+    s = views[1].stride()
+    assert list(d.ws[1]) == [s[1], s[2], s[4], s[3]] and d.sgn_wi == -1.0
+    with pytest.raises(ValueError, match="expected"):
+        plan(x_ft[0], *views)
+    with pytest.raises(ValueError, match="expected"):
+        plan(x_ft, views[0], views[1][:, :2])
+    with pytest.raises(ValueError, match="expected"):
+        plan(x_ft, *views, adjoint=True)              # 3 channels, not 4
+    with pytest.raises(ValueError, match="expected"):
+        plan(x_ft[:, :5], *views)                     # 2 * m1 > H
 
 
 # ---------------------------------------------------------------------------
