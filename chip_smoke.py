@@ -22,9 +22,15 @@ result):
      Kernels A and B (the staged step, each substage) and the mass-flow
      kernels at B = 1 and B = 8, the whole staged step and kernel D at
      B = 8, and kernel C (the batched wall pressures, B = 8), from the
-     developed states of 50 kernel-D steps; the staged step against
-     kernel D over three steps; the Poisson kernel and kernel B on three
-     small ragged grids; the gradient through projection_step on
+     developed states of 50 kernel-D steps; the eigen-solve kernel and
+     kernel A's stencil pass alone at B = 1 and B = 8 (device time per
+     launch from torch.profiler, beside their bounds); the staged step
+     against kernel D over three steps; the Poisson kernel, kernel A and
+     kernel B on three small ragged grids, on a plane that is no multiple
+     of 16 bytes (kernel A's point-by-point pass), on 8x258x8 (a basis that
+     does not fit shared memory and is streamed) and on 2x1455x2 (taller
+     than the row-owned eigen-solve takes), the eigen-solve's route
+     printed; the gradient through projection_step on
      the card against the plain version's; env_step with a state that
      needs a gradient, and the rollouts refusing one;
      the fused corner entry (gather, contraction and scatter in one
@@ -109,6 +115,31 @@ def cuda_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
+def device_us(fn, names, reps=10):
+    """Device time per launch in us of the kernels whose name holds one of
+    `names`, from torch.profiler over `reps` calls of fn, and their launches
+    per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and any(n in e.key for n in names)]
+    count = sum(e.count for e in hits)
+    if not count:
+        raise AssertionError(f"no device kernel named like {names} ran")
+    return (sum(e.self_device_time_total for e in hits) / count,
+            count / reps)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -125,7 +156,7 @@ def main() -> int:
     from pde_policylearning_torch.envs import channel_flow as cf
     from pde_policylearning_torch.envs import poisson_cuda as pc
     from pde_policylearning_torch.envs import rk3_cuda as rk
-    from pde_policylearning_torch.envs import xz_fft
+    from pde_policylearning_torch.envs import tile_plan, xz_fft
     from pde_policylearning_torch.envs.control_env import \
         default_snapshot_path
     from pde_policylearning_torch.models import FNO2dObserver
@@ -198,8 +229,11 @@ def main() -> int:
         in-kernel FFTs' own operations (`xz_fft.fft_flops`: radix-2
         butterflies, two real rows a complex transform) and their twiddle
         tables, or, with `as_built="dft"`, the dense products with the
-        (Nx Nz, F2) Kronecker DFT matrices, which are then inputs too.
-        The kernels' own cost, no bound."""
+        (Nx Nz, F2) Kronecker DFT matrices, which are then inputs too; and
+        kernel A's plane pass with the V row that each block computes
+        again for its divergence (58 of the 175 operations per point, one
+        row in `tile_plan.substage_rows`).  The kernels' own cost, no
+        bound."""
         refine = grid.refine_steps
         mode00 = 2 * gemm(n, 1, n)           # Pinv00 on the re and im columns
 
@@ -226,6 +260,9 @@ def main() -> int:
         bsolve = (mode00 + gemm(m, F2, m) + gemm(3, F2, m) + 12 * F2
                   + fft2(2, False))
         sub = (175 + 8) * field + 8 * n * C
+        rows_a = tile_plan.substage_rows(B, Ny, C)
+        if as_built and rows_a:
+            sub += 58 * -(-n // rows_a) * C
         cor = spectral(m) + 10 * field
         # (operations per env, words per env, words of shared constants)
         flops, per_env, shared = {
@@ -523,6 +560,11 @@ def main() -> int:
 
     log("kernels A and B, each substage, from the state after 50 steps")
     a0, b0 = check_stages(args1, "B=1")
+    # kernel A is bitwise the plain version on the card (every term rounds
+    # as torch's does; the build keeps fmad off)
+    worst_a = max(float((o - r).abs().max()) for o, r in zip(a0[1], a0[2])
+                  if r is not None)
+    log(f"  kernel A, stage 1, B=1: max abs error {worst_a:.3e}")
     entry("rk3_substage", "rk3_staged.cu", "envs/rk3_pallas.py:199", a0[1],
           a0[2], lambda: rk.substage_kernel(*a0[0]),
           lambda: rk.substage_plain(*a0[0]), work("rk3_substage"),
@@ -537,8 +579,44 @@ def main() -> int:
     log("B=8 (the last 8 states of the 50-step run): kernels A, B, the "
         "mass flow, the staged step, kernel D, kernel C")
     args8 = step_args(states_p[-8:])
-    check_stages(args8, "B=8")
+    a8, b8 = check_stages(args8, "B=8")
     check_steps(args8, "B=8")
+
+    log("the eigen-solve kernel and kernel A's pass alone: device us per "
+        "launch (torch.profiler) beside the bound")
+    alone = {}
+    for Bn, (a_case, b_case) in ((1, (a0, b0)), (8, (a8, b8))):
+        plan = tile_plan.eig_plan(n, m, Bn, F2)
+        rows_a = tile_plan.substage_rows(Bn, Ny, C)
+        route = (f"row-owned, tiles of {plan.tc}" if plan.tc else
+                 f"warp-owned, {plan.warps} warps, "
+                 f"{'resident' if plan.resident else 'streamed'} basis")
+        refine = grid.refine_steps
+        tile_work = (Bn * ((1 + refine) * (2 * gemm(m, F2, m)
+                                           + 2 * gemm(n, 1, n))
+                           + refine * 6 * n * F2),
+                     4 * (2 * Bn * n * F2 + 2 * m * m + 2 * m * F2 + n * n))
+        tile_us, tile_n = device_us(
+            lambda: rk.solve_correct_kernel(*b_case[0]),
+            ("eig_solve_tile", "eig_solve_rows"))
+        a_us, a_n = device_us(
+            lambda: rk.substage_kernel(*a_case[0]),
+            ("substage_planes", "substage_kernel", "divergence_kernel"))
+        if tile_n != 1 or a_n != (1 if rows_a else 2):
+            FAILED.append(f"B={Bn}: {tile_n} eigen-solve launches per solve "
+                          f"and {a_n} of kernel A per substage")
+        alone[f"B{Bn}"] = dict(
+            eig_route=route, eig_device_us=tile_us,
+            eig_bound_us=1e3 * bound(*tile_work)[0],
+            kernel_a_rows_per_block=rows_a, kernel_a_device_us=a_us * a_n,
+            kernel_a_bound_us=1e3 * bound(*work("rk3_substage", Bn))[0])
+        log(f"  B={Bn}: {json.dumps(alone[f'B{Bn}'])}")
+    report["rk3_solve_correct"]["eig_kernel_alone"] = {
+        k: {q: v[q] for q in v if q.startswith("eig")}
+        for k, v in alone.items()}
+    report["rk3_substage"]["pass_alone"] = {
+        k: {q: v[q] for q in v if q.startswith("kernel_a")}
+        for k, v in alone.items()}
     _, B8, U8, V8, W8, dP8, _, _, _ = args8
     p_k = rk.boundary_kernel(grid, U8, V8, W8, dP8)
     p_p = rk.boundary_solve_plain(grid, rk.boundary_fwd_plain(grid, U8, V8,
@@ -551,21 +629,41 @@ def main() -> int:
               grid, U8, V8, W8, dP8)), work("boundary_batched", B8),
           as_built=work("boundary_batched", B8, as_built=True), dft_B=B8)
 
-    log("ragged grids: the Poisson kernel and kernel B where the eigen-"
-        "solve's column tiles straddle envs and end ragged (3x9x4: 18 "
-        "spectrum columns per env; 2x6x2: both (0,0) columns in one tile)")
+    log("other grids: the Poisson kernel, kernel A and kernel B where the "
+        "eigen-solve's columns straddle envs and end ragged (3x9x4: 16 tile "
+        "columns per env; 2x6x2: 2), on a plane of 9 floats (3x9x3: kernel "
+        "A point by point), with a streamed basis (8x258x8) and taller than "
+        "the row-owned kernel's tiles (2x1455x2)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    for shape in ((3, 9, 4), (2, 6, 2), (24, 18, 20)):
+    for shape in ((3, 9, 4), (2, 6, 2), (24, 18, 20), (3, 9, 3), (8, 258, 8),
+                  (2, 1455, 2)):
         gs = cf.make_channel_grid(*shape, device=dev)
         gx, gy, gz = shape
         rhs_s = torch.randn((gx, gy - 1, gz), generator=gen, device=dev)
         rhs_s = rhs_s - rhs_s.mean()
-        check(f"{gx}x{gy}x{gz} poisson",
-              rel(pc.poisson_solve_kernel(gs, rhs_s),
-                  pc.poisson_solve_plain(gs, rhs_s)), 2e-4)
+        out_s = pc.poisson_solve_kernel(gs, rhs_s)
+        ref_s = pc.poisson_solve_plain(gs, rhs_s)
+        if gy <= 130:
+            check(f"{gx}x{gy}x{gz} poisson", rel(out_s, ref_s), 2e-4)
+        else:
+            # a random right-hand side on a tall graded mesh: both float32
+            # solves sit ~1e-4 .. 1e-3 from a float64 one, so each is held
+            # against float64 and not against the other
+            g64 = cf.make_channel_grid(*shape, device=dev,
+                                       dtype=torch.float64)
+            exact = pc.poisson_solve_plain(g64, rhs_s.double())
+            e_k, e_p = rel(out_s, exact), rel(ref_s, exact)
+            log(f"  {gx}x{gy}x{gz} poisson against float64: kernel "
+                f"{e_k:.3e} plain {e_p:.3e}")
+            check(f"{gx}x{gy}x{gz} poisson: kernel/plain error against "
+                  "float64", e_k / e_p, 2.0)
         for B in (1, 3):
             cols = B * gx * gz
+            plans = [tile_plan.eig_plan(gy - 1, K, B, 2 * gx * (gz // 2 + 1))
+                     for K in (gy - 1, gy - 2)]
+            log(f"  {gx}x{gy}x{gz} B={B}: eigen-solve plans {plans}, kernel A "
+                f"rows per block {tile_plan.substage_rows(B, gy, gx * gz)}")
 
             def rnd(rows):
                 return torch.randn((rows, cols), generator=gen, device=dev)
@@ -574,6 +672,21 @@ def main() -> int:
             for nm, o, r in zip("UVW", rk.solve_correct_kernel(*b_args),
                                 rk.solve_correct_plain(*b_args)):
                 check(f"{gx}x{gy}x{gz} B={B} kernel B {nm}", rel(o, r), 2e-5)
+            # kernel A: stage 1 with the RHS written, stage 2 on F1
+            U0, V0, W0 = rnd(gy + 1), rnd(gy), rnd(gy + 1)
+            dP = torch.randn(B, generator=gen, device=dev)
+            a1 = (gs, B, U0, V0, W0, U0, V0, W0, None, rnd(1), rnd(1), dP,
+                  *rk._RK3_STAGES[0], True)
+            ref1 = rk.substage_plain(*a1)
+            a2 = (gs, B, rnd(gy + 1), rnd(gy), rnd(gy + 1), U0, V0, W0,
+                  ref1[4:], a1[9], a1[10], dP, *rk._RK3_STAGES[1], False)
+            for tag, a_args, ref_a in (("stage 1", a1, ref1),
+                                       ("stage 2", a2,
+                                        rk.substage_plain(*a2))):
+                out_a = rk.substage_kernel(*a_args)
+                worst = max(rel(o, r) for o, r in zip(out_a, ref_a)
+                            if r is not None)
+                check(f"{gx}x{gy}x{gz} B={B} kernel A {tag}", worst, 1e-6)
 
     log("staged step (rk3_step_k + wall pair) against kernel D, 3 steps")
     sa = sb = st_p

@@ -17,11 +17,10 @@
 // transforms alone were 0.57 GFLOP.  On a power-of-two grid each plane is
 // one block's FFT in shared memory (common.cuh, "x/z transforms").  The
 // TPU kept the whole chain in one VMEM-resident program; here it is three
-// launches on the caller's stream (FFT, the column-tiled eigen-solve with
-// its refinement passes, inverse FFT), with the spectra in device memory
-// and L2.  The
-// solve runs twice per env construction (re-projection and cal_pressure),
-// off the per-step path.
+// launches on the caller's stream (FFT, the eigen-solve with its
+// refinement passes, inverse FFT), with the spectra in device memory and
+// L2.  The solve runs twice per env construction (re-projection and
+// cal_pressure), off the per-step path.
 #include "common.cuh"
 
 extern "C" int pde_poisson_solve(const Dims* d, const Ops* o, const Work* w,

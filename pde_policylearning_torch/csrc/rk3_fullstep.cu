@@ -24,16 +24,17 @@
 // transforms"), so the kernel does 0.60 GFLOP as built.  The eigen-basis
 // products stay fp32 FMA (no TF32: the solve NaNs the DNS at reduced
 // precision); everything between the two transforms of a solve is local
-// to a spectrum column, so one kernel per solve owns a tile of columns
-// and runs both products, the Schur finish, the (0,0) mode, the residual
-// and the refinement pass out of shared memory (common.cuh, "The
-// eigen-solve, one kernel per solve"): no split-K, no partial sums in
-// device memory.  A grid that is no power of two keeps the DFT products.
+// to a spectrum column, so one launch per solve runs both products, the
+// Schur finish, the (0,0) mode, the residual and the refinement pass out
+// of shared memory (common.cuh, "The eigen-solve, one launch per solve"):
+// no split-K, no partial sums in device memory.  A grid that is no power
+// of two keeps the DFT products.
 //
 // One env's U, V, W take ~1.6 MB, more than an SM's 227 KB of shared
 // memory, so the TPU plan of one VMEM-resident program per env has no
-// single-block equivalent: this entry enqueues ~30 launches per step
-// (three per solve) with the state, the RHS fields and the spectra in
+// single-block equivalent: this entry enqueues 31 launches per step
+// (one per substage's stencil pass, three per solve) with the state, the
+// RHS fields and the spectra in
 // device memory, resident in the 50 MB L2 at B = 1.  What is left above
 // the bound is launch latency at B = 1 and the eigen products' rate at
 // large B (a persistent step and CUDA graphs are later work).

@@ -11,22 +11,26 @@
 // current stage's fields, the RK update from the step's initial fields with
 // (c_cur, c_prev) on (current, first-stage) RHS, the no-slip/actuation BCs,
 // and the cell divergence of the result; on stage 1 it also writes the RHS
-// (F1).  RHS, update and BCs are one pass, point by point (the RHS of the
-// ghost rows is recomputed by the threads that need it); the divergence,
-// which reads the neighbours of the new fields, is a second launch.
-// Bound: memory, ~40 bytes read per point per field with the stencil
-// neighbours mostly from L1/L2; ~2 x 1.6 MB of state per env.
+// (F1).  All of it is one launch on whole x-z planes in shared memory
+// (common.cuh, "Kernel A on whole x-z planes"): a block brings the rows it
+// owns and one row each side by bulk copies, reads every stencil neighbour
+// from shared memory, keeps its rows of the new fields there and writes
+// their divergence itself.  Bound: bytes by the count of what it must move
+// (~2 x 1.6 MB of state per env), instructions as built (~25 correctly
+// rounded quotients per point).  A plane that does not fit shared memory
+// keeps the point-by-point pass and the divergence as a second launch.
 //
 // Kernel B computes what _solve_correct_kernel computes: the bordered
 // eigen-solve of the divergence (forward x/z transform, m = n-1 eigenbasis
 // with the Schur last row, the (0,0) mode through Pinv00_eq, refine_steps
 // refinement passes, synthesis), the pressure-gradient correction and the
 // BCs.  Bound: operations, the 4 x 0.035 GFLOP of eigen-basis products per
-// env and substage (fp32 FMA; no TF32, no tensor cores), all in one
-// column-tiled kernel per solve; the two transforms are FFTs in shared
-// memory on a power-of-two
-// grid (7 MFLOP) and dense DFT products (2 x 0.29 GFLOP) on any other
-// (common.cuh, "x/z transforms").
+// env and substage (fp32 FMA; no TF32, no tensor cores), all in one launch
+// per solve (common.cuh, "The eigen-solve, one launch per solve": the
+// warp-owned kernel with the eigenbasis resident in shared memory at B = 1,
+// the row-owned kernel from B = 2 on at 32x130x32); the two transforms are
+// FFTs in shared memory on a power-of-two grid (7 MFLOP) and dense DFT
+// products (2 x 0.29 GFLOP) on any other (common.cuh, "x/z transforms").
 //
 // On the TPU each kernel was one VMEM-resident program per env; an env's
 // state (~1.6 MB) exceeds an SM's shared memory, so here each is a short

@@ -29,10 +29,12 @@ Kernels (csrc/):
     grid they are FFTs in shared memory, on any other the products with
     `T2` / `Ti2` through the hand-written GEMM (`xz_fft.fft_route`).  The
     plain versions are the products.
-Between its two transforms each solve is one column-tiled kernel
-(`eig_solve_tile_kernel`, csrc/common.cuh: both eigenbasis products, the
-Schur finish, the (0,0) mode and the refinement passes on a tile of 8
-spectrum columns in shared memory).
+Between its two transforms each solve is one launch (csrc/common.cuh, "The
+eigen-solve, one launch per solve": both eigenbasis products, the Schur
+finish, the (0,0) mode and the refinement passes out of shared memory), of
+one of two kernels by the host rule `tile_plan.eig_plan`; kernel A is one
+launch on whole x-z planes in shared memory, its rows per block by
+`tile_plan.substage_rows`.
 
 `FULLSTEP` selects kernel D or the staged path for the env step and the
 rollouts, exactly as `rk3_pallas.FULLSTEP` does (`PDE_RK3_FULLSTEP`, read
@@ -48,6 +50,7 @@ must run on one CUDA stream.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 from dataclasses import dataclass
 from functools import cached_property
@@ -57,7 +60,7 @@ import torch
 
 from ..native import cuda_build
 from . import channel_flow as cf
-from . import xz_fft
+from . import tile_plan, xz_fft
 from .poisson_cuda import check_cuda_f32, _kron_mats, poisson_consts
 
 # (c_cur, c_prev on F1): the RK3 coefficient triples [8/15],
@@ -528,16 +531,24 @@ def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
     c = solve_consts(grid)
     pc = poisson_consts(grid)
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
-    if 5 * (Ny - 1) * 8 * 4 > xz_fft.MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"Ny = {Ny}: the eigen-solve kernel keeps five (Ny-1, 8) float32 "
-            "tiles in a block's shared memory (Ny <= 1453)")
     C, n = Nx * Nz, Ny - 1
     F2 = 2 * Nx * (Nz // 2 + 1)
+    # the host rules of the shared-memory kernels (tile_plan): the
+    # eigen-solve's plan for the full and for the bordered basis (raises
+    # where neither kernel's tiles fit a block: Ny > 3257 at most), and
+    # kernel A's rows per block
+    sms = torch.cuda.get_device_properties(grid.device).multi_processor_count
+    plans = [tile_plan.eig_plan(n, K, B, F2, sms) for K in (n, n - 1)]
+
+    steps = dict(dx=grid.dx, dz=grid.dz, dx2=grid.dx ** 2, dz2=grid.dz ** 2)
     dims = cuda_build.Dims(
         B=B, Nx=Nx, Ny=Ny, Nz=Nz, refine_steps=grid.refine_steps,
-        nu=grid.nu, dx=grid.dx, dz=grid.dz, dt=grid.dt, dlm=float(c.dlm),
-        dd0h=float(c.dd0h), dx2=grid.dx ** 2, dz2=grid.dz ** 2)
+        nu=grid.nu, dt=grid.dt, dlm=float(c.dlm), dd0h=float(c.dd0h),
+        **steps, **{"r" + k: float(tile_plan.reciprocals(v))
+                    for k, v in steps.items()},
+        sub_rows=tile_plan.substage_rows(B, Ny, C, sms),
+        eig=(cuda_build.EigPlan * 2)(*(
+            cuda_build.EigPlan(**dataclasses.asdict(p)) for p in plans)))
 
     def table(N):
         return torch.as_tensor(xz_fft.twiddles(N).astype(np.float32),
@@ -545,15 +556,19 @@ def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
 
     xz = (dict(twx=table(Nx), twz=table(Nz)) if fft
           else dict(T2=c.T2, Ti2=c.Ti2))
+
     ops_t = {k: v.contiguous() for k, v in dict(
         dyf=c.dyf, dyg=c.dyg, dym=c.dym, trapw=c.trapw, **xz,
-        A1=c.A1, B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
-        A13=c.A13, g3=c.g3, A=pc["A"], Bf=pc["Bf"], denom=pc["denom"],
-        Pinv00=c.Pinv00, s00=c.s00, dd=c.dd, dl=c.dl, du=c.du,
-        # transposed, so that neighbouring threads of the column-tiled
-        # eigen-solve (one row each) read neighbouring addresses
-        A1T=c.A1.T, B1T=c.B1.T, AT=pc["A"].T, BfT=pc["Bf"].T,
-        Pinv00T=c.Pinv00.T).items()}
+        **{"r" + k: torch.as_tensor(tile_plan.reciprocals(getattr(c, k)),
+                                    device=grid.device)
+           for k in ("dyf", "dyg", "dym")},
+        B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
+        A13=c.A13, g3=c.g3, denom=pc["denom"],
+        Pinv00=tile_plan.padded_rows(c.Pinv00),
+        s00=c.s00, dd=c.dd, dl=c.dl, du=c.du,
+        nbr=tile_plan.plane_neighbours(Nx, Nz).to(grid.device),
+        **{k + "T": tile_plan.padded_basis(v) for k, v in dict(
+            A1=c.A1, B1=c.B1, A=pc["A"], Bf=pc["Bf"]).items()}).items()}
     ops = cuda_build.Ops(**{k: v.data_ptr() for k, v in ops_t.items()})
 
     def empty(*shape):

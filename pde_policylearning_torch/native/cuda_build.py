@@ -36,26 +36,43 @@ NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 _P = ctypes.c_void_p
 
 
+class EigPlan(ctypes.Structure):
+    """Mirror of `struct EigPlan` in csrc/common.cuh (and of
+    `tile_plan.EigPlan`, which makes it)."""
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "tc", "rt", "slab", "stages", "resident", "blocks", "zero_blocks",
+        "warps")]
+
+
 class Dims(ctypes.Structure):
-    """Mirror of `struct Dims` in csrc/common.cuh."""
+    """Mirror of `struct Dims` in csrc/common.cuh.  rdx .. rdz2 are the
+    float32 reciprocals of the float32 dx .. dz2; `sub_rows` and `eig`
+    (the full basis' plan, then the bordered one's) are the host rules of
+    `envs/tile_plan.py`."""
     _fields_ = [("B", ctypes.c_int), ("Nx", ctypes.c_int),
                 ("Ny", ctypes.c_int), ("Nz", ctypes.c_int),
                 ("refine_steps", ctypes.c_int),
                 ("nu", ctypes.c_float), ("dx", ctypes.c_float),
                 ("dz", ctypes.c_float), ("dt", ctypes.c_float),
                 ("dlm", ctypes.c_float), ("dd0h", ctypes.c_float),
-                ("dx2", ctypes.c_float), ("dz2", ctypes.c_float)]
+                ("dx2", ctypes.c_float), ("dz2", ctypes.c_float),
+                ("rdx", ctypes.c_float), ("rdz", ctypes.c_float),
+                ("rdx2", ctypes.c_float), ("rdz2", ctypes.c_float),
+                ("sub_rows", ctypes.c_int), ("eig", EigPlan * 2)]
 
 
 class Ops(ctypes.Structure):
     """Mirror of `struct Ops`: device pointers to the cached constants.
-    T2 and Ti2 are null on a grid whose x/z transforms run as FFTs, the
-    twiddle tables twx and twz on any other; the last five are the
-    transposes the column-tiled eigen-solve reads."""
+    rdyf, rdyg, rdym are the float32 reciprocals of dyf, dyg, dym.  T2 and
+    Ti2 are null on a grid whose x/z transforms run as FFTs, the twiddle
+    tables twx and twz on any other; Pinv00's rows are padded to 4 floats;
+    nbr is the table of a plane's periodic neighbour columns; the last four
+    are the transposed, padded bases the eigen-solve kernels read."""
     _fields_ = [(k, _P) for k in (
-        "dyf", "dyg", "dym", "trapw", "T2", "Ti2", "A1", "B1", "denom1", "g",
-        "ss", "kk", "A13", "g3", "A", "Bf", "denom", "Pinv00", "s00", "dd",
-        "dl", "du", "twx", "twz", "A1T", "B1T", "AT", "BfT", "Pinv00T")]
+        "dyf", "dyg", "dym", "rdyf", "rdyg", "rdym", "trapw", "T2", "Ti2",
+        "B1", "denom1", "g", "ss", "kk", "A13", "g3", "denom", "Pinv00",
+        "s00", "dd", "dl", "du", "twx", "twz", "nbr", "A1T", "B1T", "AT",
+        "BfT")]
 
 
 class Work(ctypes.Structure):

@@ -14,8 +14,12 @@ Per path: ms and env-steps/s unprofiled, device ms per step (the sum of
 the profiler's device self time), the busy share (device time over the
 unprofiled wall time), device launches per step and the eight kernels
 with most device time (share %, launches per step), and the launches per
-step of the hand-written GEMM, of the x/z FFT kernels and of the
-column-tiled eigen-solve (on a power-of-two grid the GEMM carries the two
+step of the hand-written GEMM, of the x/z FFT kernels, of the eigen-solve
+(its two kernels together: `eig_solve_tile_kernel` at B = 1,
+`eig_solve_rows_kernel` at B = 8) and of kernel A's stencil pass
+(`substage_planes_kernel`; the point-by-point `substage_kernel` and the
+`divergence_kernel` of a plane that does not fit), the last two also with
+their device us per launch (on a power-of-two grid the GEMM carries the two
 products of the wall-pressure solve only: 2 launches per env step, no
 transform); for the `fno` loop also the corner-contraction
 kernel's share of device time, its launches per step and device us per
@@ -40,6 +44,46 @@ from ..models import FNO2dObserver
 from . import card_name
 
 
+def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
+    """The keys of the module docstring from one profiled run: `kernels` is
+    a list of (name, launches, device us in all) per device kernel, `wall`
+    the unprofiled seconds of the same work."""
+    dev_us = sum(us for _, _, us in kernels)
+    top = sorted(kernels, key=lambda k: -k[2])[:8]
+
+    def per_step(*names):
+        return sum(n for key, n, _ in kernels
+                   if any(name in key for name in names)) / n_steps
+
+    def us_per_launch(*names):
+        hits = [k for k in kernels if any(name in k[0] for name in names)]
+        return sum(k[2] for k in hits) / max(1, sum(k[1] for k in hits))
+
+    def us(*names):
+        return sum(k[2] for k in kernels
+                   if any(name in k[0] for name in names))
+
+    eig = ("eig_solve_tile", "eig_solve_rows")
+    stencil = ("substage_planes", "substage_kernel")
+    return dict(
+        corner_share=us("corner") / dev_us,
+        corner_launches_per_step=per_step("corner"),
+        corner_device_us_per_launch=us_per_launch("corner"),
+        gemm_launches_per_step=per_step("gemm_kernel"),
+        xz_fft_launches_per_step=per_step("xz_fft"),
+        eig_tile_launches_per_step=per_step(*eig),
+        eig_tile_device_us_per_launch=us_per_launch(*eig),
+        kernel_a_launches_per_step=per_step(*stencil),
+        kernel_a_device_us_per_launch=us_per_launch(*stencil),
+        divergence_launches_per_step=per_step("divergence_kernel"),
+        ms_per_step=1e3 * wall / n_steps, env_steps_per_s=n_env_steps / wall,
+        device_ms_per_step=dev_us / 1e3 / n_steps,
+        busy_share=dev_us / 1e6 / wall,
+        device_launches_per_step=sum(k[1] for k in kernels) / n_steps,
+        top=[(key[:60], round(100 * t / dev_us, 1), round(n / n_steps, 1))
+             for key, n, t in top])
+
+
 def measure(fn, n_env_steps: int, n_steps: int):
     """Unprofiled median of three runs after a warm-up, then one run under
     torch.profiler; see the module docstring for the keys."""
@@ -53,34 +97,14 @@ def measure(fn, n_env_steps: int, n_steps: int):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall = sorted(walls)[1]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in ka)
-    top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
-    corner = [e for e in ka if "corner" in e.key]
-
-    def per_step(name):
-        return sum(e.count for e in ka if name in e.key) / n_steps
-
-    return dict(
-        corner_share=sum(e.self_device_time_total for e in corner) / dev_us,
-        corner_launches_per_step=sum(e.count for e in corner) / n_steps,
-        corner_device_us_per_launch=(
-            sum(e.self_device_time_total for e in corner)
-            / max(1, sum(e.count for e in corner))),
-        gemm_launches_per_step=per_step("gemm_kernel"),
-        xz_fft_launches_per_step=per_step("xz_fft"),
-        eig_tile_launches_per_step=per_step("eig_solve_tile"),
-        ms_per_step=1e3 * wall / n_steps, env_steps_per_s=n_env_steps / wall,
-        device_ms_per_step=dev_us / 1e3 / n_steps,
-        busy_share=dev_us / 1e6 / wall,
-        device_launches_per_step=sum(e.count for e in ka) / n_steps,
-        top=[(e.key[:60], round(100 * e.self_device_time_total / dev_us, 1),
-              round(e.count / n_steps, 1)) for e in top])
+    kernels = [(e.key, e.count, e.self_device_time_total)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return summarize(kernels, sorted(walls)[1], n_env_steps, n_steps)
 
 
 def host_segments(env, policy, n_steps: int):
