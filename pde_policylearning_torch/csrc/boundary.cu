@@ -4,21 +4,25 @@
 // (phase 1) and :_boundary_solve_kernel (phase 2).
 //
 // Phase 1 (phases & 1): the pressure RHS of the state (momentum RHS, then
-// its cell divergence) and the forward x/z transform -> t (B, n, 2F).
-// Phase 2 (phases & 2): the bordered eigen-solve restricted to the rows
-// [0, 1, n-2, n-1] (B1 . t / denom1, then the 3 block rows A13 and the
-// Schur last row), the (0,0) mode through Pinv00_eq with its imaginary
-// column zeroed, and the inverse synthesis -> p (2, B*C) =
-// (-(P0 + P1)/2 ; -(P3 + P2)/2).  The two wall combinations are formed
-// before the synthesis (the synthesis is linear), so it transforms 2 rows.
+// its cell divergence) and the forward x/z transform -> t (B, n, 2F).  On
+// the FFT route one launch of a plane pass in shared memory that runs kernel
+// A's stencils and hands each divergence plane to the transform's routine
+// (common.cuh, "Phase 1 of the wall pressures"); on any other grid the RHS
+// fields, their divergence and the DFT product, three launches.
+// Phase 2 (phases & 2): rows [0, 1, n-2, n-1] of the bordered eigen-solve
+// (the 3 block rows through the operator G = A13 diag(1/denom1) B1 that the
+// host folds in float64, and the Schur last row), the (0,0) mode through
+// four rows of Pinv00_eq with its imaginary column zeroed, and the inverse
+// synthesis -> p (2, B*C) = (-(P0 + P1)/2 ; -(P3 + P2)/2).  The two wall
+// combinations are formed before the synthesis (the synthesis is linear),
+// so it transforms 2 rows.  Two launches (common.cuh, "Phase 2 of the wall
+// pressures").
 //
 // Bound: phase 1 bytes (the state read, the spectrum written: 2.2 MB per
-// env, 0.65 us), phase 2 operations (B1 . t, 2*128*128*1088 = 36 MFLOP per
-// env).  With the transforms as dense DFT products (the TPU's choice, kept
-// for grids that are no power of two) the forward transform alone was
-// 0.29 GFLOP per env; on a power-of-two grid it is one block's FFT per
-// plane (common.cuh, "x/z transforms").  The state and its RHS fields
-// (~1.6 MB per env each) stay in L2 between the launches.
+// env, 0.65 us at 32x130x32), as built instructions (~175 operations and
+// ~25 correctly rounded quotients a point, as kernel A); phase 2 bytes (t
+// and G: 2.2 MB at B = 1, 0.84 MFLOP per env where the two products
+// through the eigenbasis took 36.5).
 #include "common.cuh"
 
 extern "C" int pde_boundary_pressures(const Dims* d, const Ops* o,

@@ -32,10 +32,11 @@
 //
 // One env's U, V, W take ~1.6 MB, more than an SM's 227 KB of shared
 // memory, so the TPU plan of one VMEM-resident program per env has no
-// single-block equivalent: this entry enqueues 31 launches per step
-// (one per substage's stencil pass, three per solve) with the state, the
-// RHS fields and the spectra in
-// device memory, resident in the 50 MB L2 at B = 1.  What is left above
+// single-block equivalent: this entry enqueues 20 launches per step on a
+// power-of-two grid (per substage the stencil pass, the transform, the
+// eigen-solve, the synthesis and the correction; two for the mass flow;
+// three for the wall pressures) with the state, the RHS fields and the
+// spectra in device memory, resident in the 50 MB L2 at B = 1.  What is left above
 // the bound is launch latency at B = 1 and the eigen products' rate at
 // large B (a persistent step and CUDA graphs are later work).
 //

@@ -18,8 +18,10 @@ Kernels (csrc/):
     correction and the wall pressures of the new state, in one C entry.
   * `boundary_fwd_kernel` / `boundary_solve_kernel` (boundary.cu) <-
     `_boundary_fwd_kernel` / `_boundary_solve_kernel`: the pressure RHS
-    and its forward transform, then the 4-row bordered solve and the
-    synthesis of (p1, p2).
+    and its forward transform (one plane pass in shared memory on the FFT
+    route, its rows per block by `tile_plan.boundary_rows`), then the 4-row
+    bordered solve through the folded operator `SolveConsts.G` and the
+    synthesis of (p1, p2): two launches.
   * `boundary_kernel` (boundary.cu, both phases in one call) <-
     `_boundary_kernel` ("kernel C"), the batched wall pressures.
   * `mass_flow_kernel` (rk3_staged.cu): the staged step's mass-flow
@@ -217,6 +219,20 @@ class SolveConsts:
     @cached_property
     def _kron(self):
         return _kron_mats2(self.grid)
+
+    @cached_property
+    def G(self) -> torch.Tensor:
+        """(3, m, 2F) float64, the wall solve's folded operator: rows 0, 1,
+        m-1 of the block solve A1 [(B1 t) / denom1] as one product with t,
+        G[k, s, j] = sum_r A13[k, r] B1[r, s] / denom1[r, j], made in
+        float64 from these constants on the host and kept in float64 (the
+        sum over s cancels: rounded to float32, G alone costs more precision
+        than the two float32 products lose; csrc/common.cuh, "Phase 2 of the
+        wall pressures")."""
+        A13, B1, den = (a.detach().cpu().double()
+                        for a in (self.A13, self.B1, self.denom1))
+        G = torch.einsum("krj,rs->ksj", A13[:, :, None] / den[None], B1)
+        return G.to(self.A13.device).contiguous()
 
     @property
     def T2(self) -> torch.Tensor:
@@ -547,6 +563,7 @@ def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
         **steps, **{"r" + k: float(tile_plan.reciprocals(v))
                     for k, v in steps.items()},
         sub_rows=tile_plan.substage_rows(B, Ny, C, sms),
+        bnd_rows=tile_plan.boundary_rows(B, Ny, C, fft, sms),
         eig=(cuda_build.EigPlan * 2)(*(
             cuda_build.EigPlan(**dataclasses.asdict(p)) for p in plans)))
 
@@ -562,9 +579,9 @@ def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
         **{"r" + k: torch.as_tensor(tile_plan.reciprocals(getattr(c, k)),
                                     device=grid.device)
            for k in ("dyf", "dyg", "dym")},
-        B1=c.B1, denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk,
-        A13=c.A13, g3=c.g3, denom=pc["denom"],
-        Pinv00=tile_plan.padded_rows(c.Pinv00),
+        denom1=c.denom1, g=c.g, ss=c.ss, kk=c.kk, G=c.G, g3=c.g3,
+        denom=pc["denom"], Pinv00=tile_plan.padded_rows(c.Pinv00),
+        Pinv4=c.Pinv00[[0, 1, n - 2, n - 1]],
         s00=c.s00, dd=c.dd, dl=c.dl, du=c.du,
         nbr=tile_plan.plane_neighbours(Nx, Nz).to(grid.device),
         **{k + "T": tile_plan.padded_basis(v) for k, v in dict(
@@ -579,11 +596,9 @@ def kernel_args(grid, B: int, fft: bool | None = None) -> KernelArgs:
         F1u=empty(Ny + 1, B * C), F1v=empty(Ny, B * C),
         F1w=empty(Ny + 1, B * C),
         Un=empty(Ny + 1, B * C), Vn=empty(Ny, B * C), Wn=empty(Ny + 1, B * C),
-        Y=empty(n, B * C), t=empty(B, n, F2), u=empty(B, n, F2),
-        y=empty(B, n, F2), P=empty(B, n, F2),
-        p=empty(n, B * C), p00=empty(B, n, 2), q=empty(B, 2, F2),
-        dnew=empty(B),
-        # split-K partial products of the solve GEMMs (csrc/common.cuh)
+        Y=empty(n, B * C), t=empty(B, n, F2), P=empty(B, n, F2),
+        p=empty(n, B * C), q=empty(B, 2, F2), dnew=empty(B),
+        # split-K partial products of the DFT products (csrc/common.cuh)
         part=empty(_SPLIT_SLICES * n * max(F2, C)))
     work = cuda_build.Work(**{k: v.data_ptr() for k, v in work_t.items()},
                            part_cap=work_t["part"].numel())

@@ -1,7 +1,8 @@
-"""Host rules of the two shared-memory kernels of csrc/common.cuh: how the
+"""Host rules of the shared-memory kernels of csrc/common.cuh: how the
 eigen-solve kernel (`eig_solve_tile_kernel`) cuts its work and its shared
 memory for a grid, and how many rows a block of kernel A's plane pass
-(`substage_planes_kernel`) owns.  `rk3_cuda.kernel_args` runs them once per
+(`substage_planes_kernel`) and of the wall pressures' plane pass
+(`boundary_planes_kernel`) owns.  `rk3_cuda.kernel_args` runs them once per
 (grid, B) and hands the result to the C entries in `Dims`; the launchers
 check it and decide nothing themselves.
 """
@@ -18,6 +19,13 @@ H100_SMS = 132
 EIG_MAX_STAGES = 64         # kEigMaxStages in csrc/common.cuh
 EIG_MAX_WARPS = 8           # kEigMaxWarps: a block has `EigPlan.warps` warps
 EIG_COLS = 2                # kEigCols: columns a warp solves at a time
+# registers a thread that ptxas gives the row-owned eigen-solve kernel's two
+# builds, by `EigPlan.lean`: `eig_solve_rows_kernel` and its 40-register
+# `eig_solve_rows_lean_kernel` (chip_smoke.py fails where the build log says
+# otherwise: the rule below would go stale)
+EIG_ROWS_REGISTERS = (48, 40)
+EIG_ROWS_WARPS = 5          # warps of a block of the row-owned kernel
+SM_REGISTERS = 65536        # an SM's register file; a warp takes 256 at a time
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -33,7 +41,7 @@ class EigPlan:
     """Mirror of `struct EigPlan` (field order is the struct's).  tc > 0
     is the row-owned kernel (a block per tile of tc columns, `blocks` of
     them; of the rest only zero_blocks counts), tc = 0 the warp-owned one."""
-    tc: int           # 0, or the row-owned kernel's tile width: 8 or 16
+    tc: int           # 0, or the row-owned kernel's tile width: 8
     rt: int           # output rows per lane: 4 or 5 (32 rt rows per sweep)
     slab: int         # contraction rows of one bulk copy: 32, 16 or 8
     stages: int       # slabs the ring holds
@@ -41,6 +49,7 @@ class EigPlan:
     blocks: int       # blocks on the column tiles
     zero_blocks: int  # blocks on the (0,0)-mode columns (0 and F of an env)
     warps: int        # warps of a block (each has 3 tiles)
+    lean: int = 0     # 1: the row-owned kernel's 40-register build
 
 
 def eig_tile_row(i: int) -> int:
@@ -74,6 +83,14 @@ def eig_rows_smem_bytes(n: int, tc: int) -> int:
     return 4 * 5 * n * tc
 
 
+def eig_rows_resident(lean: int) -> int:
+    """Blocks of the row-owned eigen-solve kernel an SM holds, as its
+    build's registers allow: eight of the 48-register build, ten of the
+    40-register one."""
+    per_warp = _round_up(32 * EIG_ROWS_REGISTERS[lean], 256)
+    return SM_REGISTERS // (EIG_ROWS_WARPS * per_warp)
+
+
 def eig_plan(n: int, K: int, B: int, F2: int, sms: int = H100_SMS) -> EigPlan:
     """The eigen-solve's plan for a basis of K contraction rows on the
     n-row spectra (F2 columns each) of B envs: which of its two kernels,
@@ -88,9 +105,14 @@ def eig_plan(n: int, K: int, B: int, F2: int, sms: int = H100_SMS) -> EigPlan:
     51.3 / 43.0, B = 4 81.1 / 52.1, B = 8 142.8 / 95.9
     (`tools/kernel_routes.py`).
 
-    Row-owned: tiles of 16 columns once they still make four blocks per SM
-    and fit, else of 8; one block per (0,0)-mode column, an SM's worth at
-    most.  Warp-owned:
+    Row-owned: tiles of 8 columns and one block per (0,0)-mode column, an
+    SM's worth at most; the 40-register build (`lean`) where the launch has
+    more blocks than the 48-register build's eight an SM (B >= 8 at
+    32x130x32), which would leave a second wave of a few dozen blocks.
+    Measured in one call (NVIDIA H100 80GB HBM3, 700 W), device us per
+    launch with the 48- and the 40-register build: B = 2 41.9, 46.7; B = 4
+    52.0, 54.0; B = 8 106.0, 84.9; tiles of 16 (the earlier rule at B = 8)
+    92.4-95.1.  Warp-owned:
     * zero_blocks: one block per (0,0)-mode column (two per env), at most an
       eighth of the SMs; blocks: one per SM that is left, fewer where that
       leaves a block under 8 columns.
@@ -111,9 +133,9 @@ def eig_plan(n: int, K: int, B: int, F2: int, sms: int = H100_SMS) -> EigPlan:
     per_block = _cdiv(columns, blocks)
     if per_block > EIG_COLS * EIG_MAX_WARPS \
             and eig_rows_smem_bytes(n, 8) <= MAX_DYNAMIC_SMEM:
-        tc = 16 if (columns >= 16 * 4 * sms and
-                    eig_rows_smem_bytes(n, 16) <= MAX_DYNAMIC_SMEM) else 8
-        return EigPlan(tc, 0, 0, 0, 0, _cdiv(columns, tc), min(2 * B, sms), 0)
+        tiles, zero = _cdiv(columns, 8), min(2 * B, sms)
+        return EigPlan(8, 0, 0, 0, 0, tiles, zero, 0,
+                       int(tiles + zero > eig_rows_resident(0) * sms))
     rt = 5 if _cdiv(K, 160) * 5 < _cdiv(K, 128) * 4 else 4
     units = _cdiv(per_block, EIG_COLS)
 
@@ -176,6 +198,23 @@ def substage_rows(B: int, Ny: int, C: int, sms: int = H100_SMS) -> int:
             and B * _cdiv(Ny - 1, 2) >= sms:
         return 2
     return 1
+
+
+def boundary_rows(B: int, Ny: int, C: int, fft: bool = True,
+                  sms: int = H100_SMS) -> int:
+    """Cell rows a block of the wall pressures' plane pass owns (phase 1:
+    the pressure RHS and its forward transform in one launch); 0 keeps the
+    RHS fields, their divergence and the transform as three launches.
+
+    The pass holds kernel A's planes (the transform's arrays take the room
+    of the state planes afterwards, at most 4 C floats), so kernel A's rule
+    (`substage_rows`) on the FFT route, and 0 where the grid's x/z
+    transforms are the DFT products (`fft` false: `xz_fft.fft_route`).
+    Measured at 32x130x32 on an H100, device us per call with 0 (three
+    launches), 1, 2, 4 rows: B = 1 14.2, 9.7, 14.0, 23.4; B = 2 21.0, 14.7,
+    14.6, 23.4; B = 4 34.4, 26.2, 23.6, 24.4; B = 8 66.6, 48.9, 42.9, 46.8
+    (`tools/kernel_routes.py`)."""
+    return substage_rows(B, Ny, C, sms) if fft else 0
 
 
 def plane_neighbours(Nx: int, Nz: int) -> torch.Tensor:

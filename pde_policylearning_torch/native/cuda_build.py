@@ -41,14 +41,14 @@ class EigPlan(ctypes.Structure):
     `tile_plan.EigPlan`, which makes it)."""
     _fields_ = [(k, ctypes.c_int) for k in (
         "tc", "rt", "slab", "stages", "resident", "blocks", "zero_blocks",
-        "warps")]
+        "warps", "lean")]
 
 
 class Dims(ctypes.Structure):
     """Mirror of `struct Dims` in csrc/common.cuh.  rdx .. rdz2 are the
-    float32 reciprocals of the float32 dx .. dz2; `sub_rows` and `eig`
-    (the full basis' plan, then the bordered one's) are the host rules of
-    `envs/tile_plan.py`."""
+    float32 reciprocals of the float32 dx .. dz2; `sub_rows`, `bnd_rows`
+    and `eig` (the full basis' plan, then the bordered one's) are the host
+    rules of `envs/tile_plan.py`."""
     _fields_ = [("B", ctypes.c_int), ("Nx", ctypes.c_int),
                 ("Ny", ctypes.c_int), ("Nz", ctypes.c_int),
                 ("refine_steps", ctypes.c_int),
@@ -58,20 +58,23 @@ class Dims(ctypes.Structure):
                 ("dx2", ctypes.c_float), ("dz2", ctypes.c_float),
                 ("rdx", ctypes.c_float), ("rdz", ctypes.c_float),
                 ("rdx2", ctypes.c_float), ("rdz2", ctypes.c_float),
-                ("sub_rows", ctypes.c_int), ("eig", EigPlan * 2)]
+                ("sub_rows", ctypes.c_int), ("bnd_rows", ctypes.c_int),
+                ("eig", EigPlan * 2)]
 
 
 class Ops(ctypes.Structure):
     """Mirror of `struct Ops`: device pointers to the cached constants.
     rdyf, rdyg, rdym are the float32 reciprocals of dyf, dyg, dym.  T2 and
     Ti2 are null on a grid whose x/z transforms run as FFTs, the twiddle
-    tables twx and twz on any other; Pinv00's rows are padded to 4 floats;
-    nbr is the table of a plane's periodic neighbour columns; the last four
-    are the transposed, padded bases the eigen-solve kernels read."""
+    tables twx and twz on any other; Pinv00's rows are padded to 4 floats,
+    Pinv4 holds its rows 0, 1, n-2, n-1; G is the wall solve's folded
+    operator in float64 (`rk3_cuda.SolveConsts.G`); nbr is the table of a
+    plane's periodic neighbour columns; the last four are the transposed,
+    padded bases the eigen-solve kernels read."""
     _fields_ = [(k, _P) for k in (
         "dyf", "dyg", "dym", "rdyf", "rdyg", "rdym", "trapw", "T2", "Ti2",
-        "B1", "denom1", "g", "ss", "kk", "A13", "g3", "denom", "Pinv00",
-        "s00", "dd", "dl", "du", "twx", "twz", "nbr", "A1T", "B1T", "AT",
+        "denom1", "g", "ss", "kk", "g3", "denom", "Pinv00", "Pinv4", "s00",
+        "dd", "dl", "du", "G", "twx", "twz", "nbr", "A1T", "B1T", "AT",
         "BfT")]
 
 
@@ -80,7 +83,7 @@ class Work(ctypes.Structure):
     the size (in floats) of its split-product buffer `part`."""
     _fields_ = [(k, _P) for k in (
         "Fu", "Fv", "Fw", "F1u", "F1v", "F1w", "Un", "Vn", "Wn", "Y", "t",
-        "u", "y", "P", "p", "p00", "q", "dnew", "part")] + [
+        "P", "p", "q", "dnew", "part")] + [
         ("part_cap", ctypes.c_longlong)]
 
 
@@ -161,10 +164,14 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for this source tree
-    exists; returns its path."""
+    exists; returns its path.  nvcc's output (ptxas' registers and spills
+    among it) is kept beside the library and read back into `build_log`
+    when the library is reused."""
     global build_log, build_seconds
     so = library_path()
     if so.exists():
+        log = so.with_suffix(".log")
+        build_log = log.read_text() if log.exists() else ""
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
@@ -183,6 +190,7 @@ def build() -> Path:
         build_seconds = time.perf_counter() - t0
         if any(p.returncode != 0 for p in procs):
             raise RuntimeError(f"nvcc failed:\n{build_log}")
+        so.with_suffix(".log").write_text(build_log)
         os.replace(f"{tmp}/lib.so", so)
     return so
 

@@ -16,12 +16,14 @@ unprofiled wall time), device launches per step and the eight kernels
 with most device time (share %, launches per step), and the launches per
 step of the hand-written GEMM, of the x/z FFT kernels, of the eigen-solve
 (its two kernels together: `eig_solve_tile_kernel` at B = 1,
-`eig_solve_rows_kernel` at B = 8) and of kernel A's stencil pass
+`eig_solve_rows_kernel` at B = 8), of kernel A's stencil pass
 (`substage_planes_kernel`; the point-by-point `substage_kernel` and the
-`divergence_kernel` of a plane that does not fit), the last two also with
-their device us per launch (on a power-of-two grid the GEMM carries the two
-products of the wall-pressure solve only: 2 launches per env step, no
-transform); for the `fno` loop also the corner-contraction
+`divergence_kernel` of a plane that does not fit) and of the wall pair's
+own kernels (`boundary_planes_kernel`, phase 1; `wall_solve_kernel`, phase
+2 before its two-plane synthesis; `rhs_fields_kernel` where phase 1 takes
+three launches), the last three also with their device us per launch (on
+a power-of-two grid the GEMM carries nothing: 0 launches); for the `fno`
+loop also the corner-contraction
 kernel's share of device time, its launches per step and device us per
 launch, the host ms per step spent enqueuing the policy and the env step,
 and the device launches and device us of one observer forward on its own.
@@ -65,6 +67,7 @@ def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
 
     eig = ("eig_solve_tile", "eig_solve_rows")
     stencil = ("substage_planes", "substage_kernel")
+    wall_fwd = ("boundary_planes", "rhs_fields")
     return dict(
         corner_share=us("corner") / dev_us,
         corner_launches_per_step=per_step("corner"),
@@ -76,6 +79,9 @@ def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
         kernel_a_launches_per_step=per_step(*stencil),
         kernel_a_device_us_per_launch=us_per_launch(*stencil),
         divergence_launches_per_step=per_step("divergence_kernel"),
+        wall_launches_per_step=per_step(*wall_fwd, "wall_solve"),
+        wall_fwd_device_us_per_launch=us_per_launch(*wall_fwd),
+        wall_solve_device_us_per_launch=us_per_launch("wall_solve"),
         ms_per_step=1e3 * wall / n_steps, env_steps_per_s=n_env_steps / wall,
         device_ms_per_step=dev_us / 1e3 / n_steps,
         busy_share=dev_us / 1e6 / wall,

@@ -209,7 +209,8 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize("fail_on", ["", "rk3_staged.cu", "-shared"])
 def test_kernel_build_compiles_each_source_then_links(monkeypatch, tmp_path,
                                                       fail_on):
-    """One nvcc per source, then one link, into the hashed library path; a
+    """One nvcc per source, then one link, into the hashed library path,
+    nvcc's log beside it and read back when the library is reused; a
     failing compile or link raises with the log and leaves no library
     behind.  (A stand-in nvcc records its calls and writes its -o file.)"""
     import sys
@@ -239,14 +240,19 @@ def test_kernel_build_compiles_each_source_then_links(monkeypatch, tmp_path,
     else:
         assert cuda_build.build() == so and so.exists()
         assert "Used 8 registers" in cuda_build.build_log
+        monkeypatch.setattr(cuda_build, "build_log", "")
+        n_calls = len(calls.read_text().splitlines())
+        assert cuda_build.build() == so      # reused: no nvcc, the same log
+        assert "Used 8 registers" in cuda_build.build_log
+        assert len(calls.read_text().splitlines()) == n_calls
     lines = calls.read_text().splitlines()
     sources = sorted(cuda_build.CSRC.glob("*.cu"))
     assert sorted(ln.split()[-1] for ln in lines if " -c " in ln) == \
         sorted(map(str, sources))
     assert sum("-shared" in ln for ln in lines) == (
         0 if fail_on == "rk3_staged.cu" else 1)
-    assert list((tmp_path / "kernels").iterdir()) == ([so] if not fail_on
-                                                     else [])
+    assert sorted((tmp_path / "kernels").iterdir()) == (
+        sorted([so, so.with_suffix(".log")]) if not fail_on else [])
 
 
 @pytest.mark.cuda

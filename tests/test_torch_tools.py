@@ -78,6 +78,7 @@ def test_profile_summary_reads_the_eigen_solve_and_kernel_a():
     assert res["env_steps_per_s"] == pytest.approx(80 / 0.0075)
     assert res["corner_launches_per_step"] == 0.0
     assert res["top"][0] == (kernels[0][0][:60], 48.9, 3.0)
+    assert res["wall_launches_per_step"] == 0.0
     # the point-by-point pass and its divergence launch count as kernel A
     # and as the divergence
     old = [(f"{ns}substage_kernel({ns}Grid, ...)", 30, 1500.0),
@@ -88,20 +89,65 @@ def test_profile_summary_reads_the_eigen_solve_and_kernel_a():
     assert res["divergence_launches_per_step"] == 3.0
 
 
+def test_profile_summary_reads_the_wall_pair():
+    """`summarize` on one kernel-D step of 8 envs: the wall pair's own two
+    kernels (phase 1's plane pass, phase 2's column kernel) per step, each
+    with its device us per launch; on the three-launch phase 1 the RHS
+    fields kernel counts as phase 1 and its divergence as the divergence."""
+    ns = "(anonymous namespace)::"
+    kernels = [
+        (f"{ns}boundary_planes_kernel({ns}Grid, int const*, ...)", 10, 380.0),
+        (f"{ns}wall_solve_kernel(int, int, float, ...)", 10, 42.0),
+        (f"{ns}xz_fft_inverse_kernel(int, int, ...)", 40, 500.0),
+        (f"void {ns}eig_solve_rows_kernel<16>({ns}EigArgs)", 30, 2850.0),
+    ]
+    res = profile_paths.summarize(kernels, wall=0.007, n_env_steps=80,
+                                  n_steps=10)
+    assert res["wall_launches_per_step"] == 2.0
+    assert res["wall_fwd_device_us_per_launch"] == pytest.approx(38.0)
+    assert res["wall_solve_device_us_per_launch"] == pytest.approx(4.2)
+    assert res["gemm_launches_per_step"] == 0.0
+    three = [(f"{ns}rhs_fields_kernel({ns}Grid, ...)", 10, 300.0),
+             (f"{ns}divergence_kernel({ns}Grid, ...)", 10, 100.0),
+             (f"{ns}wall_solve_kernel(int, int, float, ...)", 10, 40.0)]
+    res = profile_paths.summarize(three, wall=0.01, n_env_steps=10,
+                                  n_steps=10)
+    assert res["wall_launches_per_step"] == 2.0
+    assert res["wall_fwd_device_us_per_launch"] == pytest.approx(30.0)
+    assert res["divergence_launches_per_step"] == 1.0
+
+
+def test_kernel_routes_reads_the_registers_ptxas_gave():
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121eig_solve_rows_kernelILi16EEEv7EigArgs' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121eig_solve_rows_kernelILi16EEEv7EigArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 352 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111gemm_kernelEv' for 'sm_90a'
+ptxas info    : Used 90 registers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117wall_solve_kernelEv' for 'sm_90a'
+ptxas info    : Used 40 registers"""
+    regs = kernel_routes.kernel_registers(log)
+    assert regs == {
+        "_ZN12_GLOBAL__N_121eig_solve_rows_kernelILi16EEEv7EigArgs": 72,
+        "_ZN12_GLOBAL__N_117wall_solve_kernelEv": 40}
+    assert kernel_routes.kernel_registers("") == {}
+
+
 def test_kernel_routes_forces_each_eigen_solve_route(monkeypatch):
     """`kernel_routes.forced_plans`: the warp-owned plan where the rule
-    would take the row-owned kernel, and both tile widths of that one; the
+    would take the row-owned kernel, and both builds of that one; the
     rule itself is left as it was.  The script needs a card."""
     from pde_policylearning_torch.envs import tile_plan
     rule = tile_plan.eig_rows_smem_bytes
     plans = kernel_routes.forced_plans(129, 1088, 8, 132)
     assert tile_plan.eig_rows_smem_bytes is rule
-    assert tile_plan.eig_plan(129, 128, 8, 1088).tc == 16
+    assert tile_plan.eig_plan(129, 128, 8, 1088).lean == 1
     warp = plans["warp-owned"]
     assert (warp.tc, warp.resident, warp.blocks, warp.warps) == (0, 1, 116, 8)
-    for tc in (8, 16):
-        p = plans[f"row-owned, tiles of {tc}"]
-        assert (p.tc, p.blocks, p.zero_blocks) == (tc, -(-8 * 1086 // tc), 16)
+    for regs, lean in ((48, 0), (40, 1)):
+        p = plans[f"row-owned, {regs} registers"]
+        assert (p.tc, p.blocks, p.zero_blocks, p.lean) == (8, 1086, 16, lean)
+    assert len(plans) == 3 and plans["warp-owned"].lean == 0
     assert set(kernel_routes.PLAN_FIELDS) == set(
         tile_plan.EigPlan.__dataclass_fields__)
     monkeypatch.setattr(kernel_routes.torch.cuda, "is_available",
