@@ -47,6 +47,9 @@ result):
      forward, the gradient to x (the adjoint entry) and the gradients
      through its autograd Function; the strided entry behind
      `corner_contract` at its four shapes with its gradients;
+     the same at the RNO's (I = O = 34, two 12 x 12 corners, B 1 and 32),
+     the UNet's (64 -> 32) and the transformer regressor's (96 -> 48,
+     48 -> 48 on B x T = 2 and 40 planes) shapes;
      `spectral_conv_nd` (also with output sizes other than the input's)
      and the full-width
      `FNO2dObserver(12, 12, 32)` (forward, and the gradient to its input)
@@ -70,7 +73,30 @@ result):
      steps, then make_policy('optimal-observer', opt_steps 10) for 200
      steps, one warm-up and three timed runs each; the fused corner
      entry's launch count over exactly one timed run must be 4 per `fno`
-     step and 80 per `optimal-observer` step.
+     step and 80 per `optimal-observer` step;
+  7. the observer zoo serving at full width with seeded weights:
+     RNO2dObserver(12, 12, 34), SimpleTransformer(n_hidden 96, 2 heads,
+     fourier, freq_dim 48, 12 modes, 8 encoder and 3 regressor layers) and
+     UNet(spectral, 12 modes), each forward on the kernel route against
+     the plain route (rel L2 <= 1e-5) with exactly 28, 3 and 1 corner
+     launches; make_policy('rno') for 500 steps and
+     make_policy('transformer') for 200 (model_timestep 2, action_scale
+     0.3, action_clip 0.01), one warm-up and three timed runs each, exactly
+     28 and 3 forward corner launches per step, finite series, net flux
+     <= 1e-6;
+  8. observer training: a 400-step `gt` dataset from
+     generate_channel_dataset in a temporary directory, then
+     run_pde_observers.main on configs/base_fno.yaml, matlab_rno.yaml and
+     base_transformer.yaml (3 epochs, ntrain / ntest cut to the dataset,
+     every width as configured): the train loss finite and falling, the
+     checkpoint reloaded to the same test loss bit for bit, and exactly
+     (forward, adjoint, strided) = (F, F, 2F) corner launches per training
+     step and F per evaluation step (F = 4, 28, 3); one training step of
+     FNO at B 20 and of RNO at B 32 on the kernel route against the plain
+     route (loss <= 1e-6, every parameter gradient rel L2 <= 1e-5).  The
+     backward entries (the fused entry's adjoint, the strided entry) are
+     held and timed at those two training shapes in phase 3, beside their
+     bounds and one `einsum`.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -95,6 +121,9 @@ def rel(a, b):
 
 
 FAILED = []
+# (readings, readings short of the most complete of their call) of
+# `device_events`
+SHORT_READINGS = [0, 0]
 
 
 def check(name, err, tol):
@@ -125,48 +154,62 @@ def cuda_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def device_us(fn, names, reps=10):
-    """Device time per launch in us of the kernels whose name holds one of
-    `names`, from torch.profiler over `reps` calls of fn, and their launches
-    per call."""
+def device_events(fn, reads=3):
+    """{kernel name: (launches, self device us)} of the device events of
+    one call of fn under torch.profiler, from the most complete of `reads`
+    readings.  The profiler now and then misses launches at the start of
+    its window and was not seen to add one, so one short reading is not a
+    launch the code skipped, and an exact count is held to the reading
+    with the most launches.  The short readings are tallied in
+    SHORT_READINGS."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and any(n in e.key for n in names)]
-    count = sum(e.count for e in hits)
-    if not count:
-        raise AssertionError(f"no device kernel named like {names} ran")
-    return (sum(e.self_device_time_total for e in hits) / count,
-            count / reps)
-
-
-def launches_per_step(run, n1=20, n2=40):
-    """Device launches per step of `run(k)` (k steps) from torch.profiler:
-    the count of a run of n2 steps less that of n1, over n2 - n1, so that
-    what runs once per call cancels; and the two counts."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    counts = []
-    for k in (n1, n2):
-        run(k)
+    best, totals = None, []
+    for _ in range(reads):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(k)
+            fn()
             torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA))
+        got = {e.key: (e.count, e.self_device_time_total)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+        totals.append(sum(n for n, _ in got.values()))
+        if best is None or totals[-1] > max(totals[:-1]):
+            best = got
+    SHORT_READINGS[0] += len(totals)
+    SHORT_READINGS[1] += sum(t < max(totals) for t in totals)
+    return best
+
+
+def device_us(fn, names, reps=10):
+    """Device time per launch in us of the kernels whose name holds one of
+    `names`, from torch.profiler over `reps` calls of fn (`device_events`),
+    and their launches per call."""
+    for _ in range(3):
+        fn()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+    hits = [v for k, v in device_events(calls).items()
+            if any(n in k for n in names)]
+    count = sum(n for n, _ in hits)
+    if not count:
+        raise AssertionError(f"no device kernel named like {names} ran")
+    return sum(t for _, t in hits) / count, count / reps
+
+
+def launches_per_step(run, n1=20, n2=40):
+    """Device launches per step of `run(k)` (k steps) from torch.profiler
+    (`device_events`): the count of a run of n2 steps less that of n1, over
+    n2 - n1, so that what runs once per call cancels; and the two counts."""
+    counts = []
+    for k in (n1, n2):
+        run(k)
+        counts.append(sum(n for n, _ in device_events(lambda: run(k))
+                          .values()))
     return (counts[1] - counts[0]) / (n2 - n1), counts
 
 
@@ -1115,12 +1158,28 @@ def main() -> int:
     def cre(a):
         return torch.view_as_real(a) if a.is_complex() else a
 
-    spec_serving = (1, Nx, Nz // 2 + 1, 32, 32, 6, 6)
-    spec_training = (20, Nx, Nz // 2 + 1, 32, 32, 6, 6)
+    Wh = Nz // 2 + 1
+    spec_serving = (1, Nx, Wh, 32, 32, 6, 6)
+    spec_training = (20, Nx, Wh, 32, 32, 6, 6)
+    spec_rno_training = (32, Nx, Wh, 34, 34, 12, 12)
     for tag, shape, legacy in (
             ("serving B=1", spec_serving, False),
             ("training B=20", spec_training, False),
-            ("legacy layout", (2, Nx, Nz // 2 + 1, 32, 32, 6, 6), True),
+            # the RNO (I = O = 34), the UNet's last block (64 -> 32) and the
+            # transformer's regressor (96 -> 48, 48 -> 48 on B x T planes),
+            # two 12 x 12 corners, serving and at their training batches
+            ("RNO serving B=1", (1, Nx, Wh, 34, 34, 12, 12), False),
+            ("RNO training B=32", spec_rno_training, False),
+            ("UNet B=1", (1, Nx, Wh, 64, 32, 12, 12), False),
+            ("transformer B*T=2, 96 -> 48", (2, Nx, Wh, 96, 48, 12, 12),
+             False),
+            ("transformer B*T=2, 48 -> 48", (2, Nx, Wh, 48, 48, 12, 12),
+             False),
+            ("transformer training B*T=40, 96 -> 48",
+             (40, Nx, Wh, 96, 48, 12, 12), False),
+            ("transformer training B*T=40, 48 -> 48",
+             (40, Nx, Wh, 48, 48, 12, 12), False),
+            ("legacy layout", (2, Nx, Wh, 32, 32, 6, 6), True),
             ("ragged", (3, 9, 5, 5, 6, 4, 3), False),
             ("ragged, legacy", (3, 9, 5, 5, 7, 3, 5), True),
             ("wide", (2, 16, 9, 200, 300, 3, 4), False),
@@ -1178,6 +1237,60 @@ def main() -> int:
         sfx = "" if B == 1 else "_b20"
         report["corner_contract"].update(
             {f"strided_entry_{k}{sfx}": v for k, v in r.items()})
+
+    log("  the backward entries at the training shapes (FNO B 20, RNO B 32)")
+
+    def backward_entries(shape):
+        """The gradient to x (the fused entry's adjoint: the corners of
+        dout in, the whole dx spectrum out) and one corner's weight
+        gradient conj(x)^T dout (the strided entry, the channel axis in
+        the batch role), each against its plain version, timed by CUDA
+        events and by the profiler's device time, beside its bound
+        (counted as `spec_work` counts: 8 bytes a complex64, 8
+        operations a complex multiply-add) and one `einsum` on the
+        gathered corners."""
+        B, H, Wc, I, O, m1, m2 = shape
+        x_ft, d_ft, ws = spec_inputs(*shape, False)
+        views = sc._dense_views(ws)
+        d_c = torch.cat([d_ft[:, :m1, :m2], d_ft[:, -m1:, :m2]], 1)
+        w_c = torch.complex(*(torch.cat([v[i] for v in views])
+                              for i in (0, 1)))
+        xb, db = x_ft[:, :m1, :m2], d_ft[:, :m1, :m2]
+        args = (xb.real.permute(1, 3, 2, 0), xb.imag.permute(1, 3, 2, 0),
+                db.real.permute(1, 2, 0, 3), db.imag.permute(1, 2, 0, 3))
+        fns = {
+            "adjoint": (
+                lambda: sc.spectral_corners_kernel(d_ft, *views,
+                                                   adjoint=True),
+                lambda: sc.spectral_corners_plain(
+                    d_ft, [sc._adjoint_weight(v) for v in views], (m1, m2)),
+                lambda: torch.einsum("brmo,rmio->brmi", d_c, w_c.conj()),
+                spec_work(B, H, Wc, O, I, m1, m2), "spectral_corners"),
+            "strided": (
+                lambda: sc.corner_contract_kernel(*args, conj_x=True),
+                lambda: sc.corner_contract_plain(args[0], -args[1], *args[2:]),
+                lambda: torch.einsum("bhwi,bhwo->hwio", xb.conj(), db),
+                (8 * B * m1 * m2 * I * O,
+                 8 * (B * m1 * m2 * (I + O) + m1 * m2 * I * O)),
+                "corner_contract")}
+        out = {}
+        for nm, (fk, fp, fl, fb, kname) in fns.items():
+            got, want = (torch.stack(a) if isinstance(a, tuple)
+                         else torch.view_as_real(a) for a in (fk(), fp()))
+            check(f"{nm} entry at {shape}", rel(got, want), 2e-6)
+            b_ms, b_by = bound(*fb)
+            out[nm] = dict(
+                ms=cuda_ms(fk), device_us=device_us(fk, (kname,))[0],
+                plain_ms=cuda_ms(fp), library_ms=cuda_ms(fl),
+                bound_ms=b_ms, bound_by=b_by, operations=fb[0],
+                bytes=fb[1],
+                max_abs_err=float((got - want).abs().max()))
+            log(f"  {nm} at B={B}, I={I}, O={O}, {m1}x{m2}: {out[nm]}")
+        return out
+
+    report["corner_contract"]["backward_entries"] = {
+        "fno_b20": backward_entries(spec_training),
+        "rno_b32": backward_entries(spec_rno_training)}
 
     log("spectral_conv_nd and FNO2dObserver(12, 12, 32): kernel route "
         "against plain route")
@@ -1471,6 +1584,183 @@ def main() -> int:
             raise AssertionError(f"{name}: actuation has a net flux {flux}")
         policy_runs[name] = got[0]
 
+    corner, strided_entry = sc.spectral_corners_kernel, \
+        sc.corner_contract_kernel
+
+    def zero_counts():
+        for fn in (*every.values(), corner, strided_entry):
+            fn.launches = 0
+        corner.adjoint_launches = 0
+
+    def corner_counts():
+        """(forward, adjoint, strided) launches of the corner kernel's
+        entries since `zero_counts`."""
+        return (corner.launches - corner.adjoint_launches,
+                corner.adjoint_launches, strided_entry.launches)
+
+    # 7. the observer zoo serving -------------------------------------------
+    log("observer zoo at full width, seeded: RNO2dObserver(12, 12, 34), "
+        "SimpleTransformer(96, 2 heads, fourier, freq_dim 48, 12 modes, 8 + "
+        "3 layers), UNet(spectral, 12 modes)")
+    from pde_policylearning_torch import models as zoo
+    zoo_models = {
+        "rno": (lambda be, g: zoo.RNO2dObserver(
+            12, 12, 34, conv_backend=be, generator=g), (1, 2, Nx, Nz, 1), 28),
+        "transformer": (lambda be, g: zoo.SimpleTransformer(
+            n_hidden=96, n_head=2, attention_type="fourier", freq_dim=48,
+            fourier_modes=12, conv_backend=be, generator=g),
+            (1, 2, Nx, Nz, 1), 3),
+        "unet": (lambda be, g: zoo.UNet(
+            use_spectral_conv=True, modes=12, conv_backend=be, generator=g),
+            (1, Nx, Nz, 1), 1)}
+    served = {}
+    for name, (make, shape, per_forward) in zoo_models.items():
+        g = torch.Generator(device=dev)
+        g.manual_seed(7)
+        model_k, model_p = make("auto", g), make("plain", g)
+        model_p.load_state_dict(model_k.state_dict())
+        for m in (model_k, model_p):
+            m.requires_grad_(False)
+        x = torch.randn(shape, generator=g, device=dev)
+        zero_counts()
+        out_k = model_k(x)
+        got = corner_counts()
+        if got != (per_forward, 0, 0):
+            FAILED.append(f"{name} forward: corner launches (forward, "
+                          f"adjoint, strided) {got}, expected "
+                          f"{(per_forward, 0, 0)}")
+        check(f"{name} forward {tuple(out_k.shape)}, kernel route against "
+              "plain route", rel(out_k, model_p(x)), 1e-5)
+        served[name] = model_k
+
+    loop_runs = {}
+    for name, n_pol, per_step in (("rno", 500, 28), ("transformer", 200, 3)):
+        env = fresh_env()
+        policy = make_policy(name, env.grid, model=served[name],
+                             detect_plane=dp, p_norm=dataset.p_norm,
+                             v_norm=dataset.v_norm, model_timestep=2,
+                             action_scale=0.3, action_clip=0.01)
+        rates = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = run_closed_loop(env, policy, n_steps=n_pol,
+                                  log_interval=n_pol, detect_plane=dp,
+                                  verbose=False, collect_planes=(i == 0))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if i:
+                rates.append(n_pol / dt)
+            else:
+                actions = res["opV2"]
+            got = (*corner_counts(), rk.env_step_full_kb_kernel.launches)
+            want = (per_step * n_pol, 0, 0, n_pol)
+            if got != want:
+                raise AssertionError(
+                    f"{name}: (corner forward, adjoint, strided, kernel D) "
+                    f"launches {got} over {n_pol} steps, expected {want}")
+            for k, v in res["series"].items():
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"{name}: non-finite {k}")
+        flux = np.abs(actions.mean(axis=(1, 2))).max()
+        shear = res["series"]["drag_reduction/1_shear_stress"]
+        log(f"  {name}: steps/s runs {[round(r, 2) for r in rates]} median "
+            f"{sorted(rates)[1]:.2f}  ({smi}); corner launches per run "
+            f"{got[0]} ({per_step} per step); shear last {shear[-1]:.6e}, "
+            f"max |opV2| {np.abs(actions).max():.3e}, max |plane mean| "
+            f"{flux:.1e}")
+        if flux > 1e-6:
+            raise AssertionError(f"{name}: actuation has a net flux {flux}")
+        loop_runs[name] = got[0]
+
+    # 8. observer training --------------------------------------------------
+    from pde_policylearning_torch import run_pde_observers as rpo
+    from pde_policylearning_torch.training import (load_checkpoint,
+                                                   relative_l2_loss)
+    from pde_policylearning_torch.utils import load_yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    n_gen, epochs = 400, 3
+    trained = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "planes")
+        t0 = time.perf_counter()
+        generate_channel_dataset(folder, n_gen, env=fresh_env(),
+                                 detect_plane=dp)
+        log(f"observer training: a {n_gen}-step gt dataset in "
+            f"{time.perf_counter() - t0:.1f} s; run_pde_observers.main, "
+            f"{epochs} epochs each, widths as configured")
+
+        def config(name, **over):
+            args = load_yaml(os.path.join(here, "configs", name))
+            args.update(DATA_FOLDER=folder, epochs=epochs, set_epoch=-1,
+                        out_dir=os.path.join(tmp, "out"), **over)
+            return args
+
+        for name, over, per_step in (
+                ("base_fno.yaml", dict(ntrain=300, ntest=100), 4),
+                ("matlab_rno.yaml", {}, 28),
+                ("base_transformer.yaml", dict(ntrain=300, ntest=100), 3)):
+            args = config(name, **over)
+            train_ds, train, test = rpo.load_arrays(args, dev)
+            bs = args.batch_size
+            steps = train[0].shape[0] // bs
+            test_steps = max(1, test[0].shape[0] // min(bs, test[0].shape[0]))
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            _, hist = rpo.main(args, device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            got = corner_counts()
+            want = (epochs * (steps + test_steps) * per_step,
+                    epochs * steps * per_step, epochs * steps * 2 * per_step)
+            if got != want:
+                FAILED.append(f"{name}: corner launches (forward, adjoint, "
+                              f"strided) {got}, expected {want}")
+            tr, te = hist["train_loss"], hist["test_loss"]
+            if not (np.isfinite(tr + te).all() and tr[-1] < tr[0]):
+                FAILED.append(f"{name}: train loss {tr} does not fall")
+            model, _ = rpo.build_model(args, device=dev)
+            load_checkpoint(hist["checkpoint"], model)
+            again = float(rpo.make_trainer(args, model, train_ds.v_norm)
+                          .test_loss(test).float())
+            if again != hist["best_loss"]:
+                FAILED.append(f"{name}: the checkpoint reloads to test loss "
+                              f"{again!r}, training read {hist['best_loss']!r}")
+            trained[args.model_name] = dict(
+                forward=got[0], adjoint=got[1], strided=got[2],
+                per_training_step=(per_step, per_step, 2 * per_step),
+                steps=epochs * steps, train_loss=tr, test_loss=te,
+                ms_per_epoch=[1e3 * t for t in hist["epoch_time"]],
+                seconds=dt)
+            log(f"  {args.model_name}: {steps} steps of {bs} an epoch, "
+                f"train {tr}, test {te}, best {hist['best_loss']!r} "
+                f"(reloaded {again!r}); {dt:.1f} s; corner launches "
+                f"(forward, adjoint, strided) {got}  ({smi})")
+
+        # one training step on the kernel route against the plain route
+        for name, B in (("base_fno.yaml", 20), ("matlab_rno.yaml", 32)):
+            args = config(name)
+            train_ds, (x, y), _ = rpo.load_arrays(args, dev)
+            step = []
+            for backend in ("auto", "plain"):
+                g = torch.Generator(device=dev)
+                g.manual_seed(0)
+                m, _ = rpo.build_model(args, device=dev, generator=g,
+                                       conv_backend=backend)
+                loss = relative_l2_loss(m(x[:B]).reshape(y[:B].shape),
+                                        y[:B], train_ds.v_norm)
+                step.append((loss, torch.autograd.grad(
+                    loss, list(m.parameters()))))
+            (lk, gk), (lp, gp) = step
+            check(f"{args.model_name} B={B} training step: loss",
+                  abs(lk.item() - lp.item()) / abs(lp.item()), 1e-6)
+            check(f"{args.model_name} B={B} training step: worst parameter "
+                  "gradient", max(rel(a, b) for a, b in zip(gk, gp)), 1e-5)
+
+    log(f"profiler: {SHORT_READINGS[1]} of {SHORT_READINGS[0]} readings "
+        "short of the most complete reading of their call")
     if FAILED:
         raise AssertionError("failed checks: " + "; ".join(FAILED))
     for k, v in {**launches, **staged_launches,
@@ -1478,6 +1768,13 @@ def main() -> int:
         report[k]["launches"] = v
     report["corner_contract"]["launches_optimal_observer"] = \
         policy_runs["optimal-observer"]
+    report["corner_contract"]["launches_rno"] = loop_runs["rno"]
+    report["corner_contract"]["launches_transformer"] = \
+        loop_runs["transformer"]
+    report["corner_contract"]["launches_training"] = {
+        k: {n: v[n] for n in ("forward", "adjoint", "strided",
+                               "per_training_step", "steps")}
+        for k, v in trained.items()}
     print(json.dumps({"kernels": [report[k] for k in
                                   (*every, "corner_contract")]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,13 @@
 Each policy is a function `(state, p2, generator) -> (opV1, opV2)`; the
 closed loop calls it once per step with the state in kernel layout.
 Counterpart of `pde_policylearning_tpu/control/policies.py:make_policy`
-for the policies that need no model and for the two that serve an
-`FNO2dObserver`: `fno` (opposition control on the observer's estimate of
-the detection-plane velocity) and `optimal-observer` (a few Adam steps on
-the action through the frozen observer, every control step).
+for the policies that need no model, for the three that serve an
+observer's estimate of the detection-plane velocity (opposition control:
+`fno` on one plane, `rno` and `transformer` on a sequence of
+`model_timestep` copies of it), and for `optimal-observer` (a few Adam
+steps on the action through the frozen observer, every control step).
+`StatefulPolicy` and the policies that carry a learned state come with
+ROADMAP.md queue 1 item 4, where their only users are.
 """
 from __future__ import annotations
 
@@ -18,29 +21,30 @@ from ..envs import channel_flow as cf
 
 # The model-based policies and the queue item of ROADMAP.md that ports them.
 _NOT_YET = {
-    "rno": "queue 1 item 5 (the recurrent and transformer observers)",
-    "transformer": "queue 1 item 5 (the recurrent and transformer observers)",
     "optimal-policy-observer":
-        "queue 1 item 7 (the flagship gradient-control slice)",
+        "queue 1 item 4 (the flagship gradient-control slice)",
     "fullfield-optimal-observer":
-        "queue 1 item 7 (the flagship gradient-control slice)",
+        "queue 1 item 4 (the flagship gradient-control slice)",
 }
 
 
 def make_policy(name: str, grid, *, detect_plane: int = 25,
                 model=None, p_norm=None, v_norm=None,
-                rand_scale: float = 1.0,
+                rand_scale: float = 1.0, model_timestep: int = 1,
                 bound_v_norm=None, plane_norm=None,
                 opt_steps: int = 10, opt_lr: float = 1e-3,
                 reg_weight: float = 0.1,
                 action_scale: float = 1.0,
                 action_clip: Optional[float] = None) -> Callable:
     """Build a policy function by name: `unmanipulated`, `gt` (opposition
-    control), `rand`, `fno` or `optimal-observer`.
+    control), `rand`, `fno`, `rno`, `transformer` or `optimal-observer`.
 
     `model` is the observer (an `nn.Module` that holds its own parameters,
     so there is no `params` argument) on the env's device; the normalizers
-    are `ops.normalization` objects on that device or None."""
+    are `ops.normalization` objects on that device or None.  `rno` and
+    `transformer` hand the model the wall-pressure plane repeated over
+    `model_timestep` steps, (1, T, Nx, Nz, 1); the transformer's estimate
+    is its last step's."""
     Nx, Nz = grid.Nx, grid.Nz
 
     if name == "unmanipulated":
@@ -63,16 +67,23 @@ def make_policy(name: str, grid, *, detect_plane: int = 25,
             return torch.zeros_like(opV2), opV2
         return policy
 
-    if name == "fno":
+    if name in ("fno", "rno", "transformer"):
         if model is None:
-            raise ValueError("policy 'fno' needs the observer `model`")
+            raise ValueError(f"policy {name!r} needs the observer `model`")
 
         def policy(state, p2, generator):
             with torch.no_grad():
                 x = p2.reshape(Nx, Nz)
                 if p_norm is not None:
                     x = p_norm.encode(x)
-                pred = model(x[None, :, :, None]).reshape(Nx, Nz)
+                if name == "fno":
+                    pred = model(x[None, :, :, None])
+                else:
+                    pred = model(x[None, None, :, :, None].expand(
+                        1, model_timestep, Nx, Nz, 1))
+                    if name == "transformer":
+                        pred = pred[:, -1]
+                pred = pred.reshape(Nx, Nz)
                 v_hat = v_norm.decode(pred) if v_norm is not None else pred
                 # opposition control with the estimated detection-plane
                 # velocity: the observer predicts +V, gt_control applies -V

@@ -1,3 +1,5 @@
-from .channel import PDEDataset, generate_channel_dataset
+from .channel import (FullFieldNSDataset, PDEDataset, SequentialPDEDataset,
+                      batch_arrays, generate_channel_dataset)
 
-__all__ = ["PDEDataset", "generate_channel_dataset"]
+__all__ = ["FullFieldNSDataset", "PDEDataset", "SequentialPDEDataset",
+           "batch_arrays", "generate_channel_dataset"]

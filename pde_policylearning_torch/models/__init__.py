@@ -1,8 +1,30 @@
+from .dispatcher import (MODEL_ZOO, available_models, dispatch_model,
+                         get_model, register_model)
 from .fno import (FNO, FNO1d, FNO2d, FNO3d, TFNO, TFNO1d, TFNO2d, TFNO3d,
                   FNOBlocks)
-from .observers import FNO2dObserver, make_grid
+from .observers import (DoubleConv, FNO2dObserver, RNO2dObserver, UNet,
+                        make_grid)
+from .rno import (RNO2d, FourierLayer2d, RNOCell, RNOLayer,
+                  RNOSpectralConv2d, SpectralConvWithFC, SpectralRegressor)
 from .spectral_layers import SpectralConv
+from .transformer import (BulkRegressor, Conv2dResBlock, DownScaler,
+                          FeedForward, FourierTransformer2D,
+                          FourierTransformer2DLite, SimpleAttention,
+                          SimpleTransformer, SimpleTransformerEncoderLayer,
+                          SpectralConv1dToken, UpScaler, attention,
+                          causal_linear_attention, freq_attention,
+                          linear_attention, positional_encoding)
 
 __all__ = ["FNO", "FNO1d", "FNO2d", "FNO3d", "TFNO", "TFNO1d", "TFNO2d",
-           "TFNO3d", "FNOBlocks", "FNO2dObserver", "make_grid",
-           "SpectralConv"]
+           "TFNO3d", "FNOBlocks", "FNO2dObserver", "RNO2dObserver", "UNet",
+           "DoubleConv", "make_grid", "SpectralConv", "RNO2d",
+           "FourierLayer2d", "RNOCell", "RNOLayer", "RNOSpectralConv2d",
+           "SpectralConvWithFC", "SpectralRegressor", "BulkRegressor",
+           "Conv2dResBlock", "DownScaler", "FeedForward",
+           "FourierTransformer2D", "FourierTransformer2DLite",
+           "SimpleAttention", "SimpleTransformer",
+           "SimpleTransformerEncoderLayer", "SpectralConv1dToken", "UpScaler",
+           "attention", "causal_linear_attention", "freq_attention",
+           "linear_attention", "positional_encoding", "MODEL_ZOO",
+           "available_models", "dispatch_model", "get_model",
+           "register_model"]

@@ -13,6 +13,7 @@ the norms use population variances, as `jnp.var` does.
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Callable, Optional
 
@@ -172,3 +173,37 @@ def init_linears_(module: nn.Module, generator: torch.Generator) -> None:
                                  generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
+
+
+def flax_init_(m: nn.Module, generator: Optional[torch.Generator] = None,
+               std: Optional[float] = None) -> nn.Module:
+    """Draw the weight of an `nn.Linear`, `nn.Conv2d` or
+    `nn.ConvTranspose2d` as flax's `Dense`, `Conv` and `ConvTranspose` do
+    by default (normal of variance 1 / fan_in, fan_in = in x kh x kw; the
+    scale of lecun_normal) or of `std` where given, and zero its bias;
+    from `generator` (None: torch's global generator).  Returns `m`."""
+    w = m.weight
+    if std is None:
+        fan_in = w.shape[0] if isinstance(m, nn.ConvTranspose2d) \
+            else w.shape[1]
+        std = (fan_in * math.prod(w.shape[2:])) ** -0.5
+    with torch.no_grad():
+        w.normal_(0.0, std, generator=generator)
+        if m.bias is not None:
+            m.bias.zero_()
+    return m
+
+
+def dense(in_features: int, out_features: int,
+          generator: Optional[torch.Generator] = None,
+          std: Optional[float] = None, **factory) -> nn.Linear:
+    """A flax `Dense` as an `nn.Linear`, drawn by `flax_init_`."""
+    return flax_init_(nn.Linear(in_features, out_features, **factory),
+                      generator, std)
+
+
+def factory(device=None, dtype=torch.float32) -> dict:
+    """`device` (None: the card, raising without one) and `dtype` as the
+    keyword arguments of a torch constructor."""
+    from ..utils.device import resolve_device
+    return dict(device=resolve_device(device), dtype=dtype)

@@ -241,7 +241,8 @@ def spectral_corners_kernel(x_ft, w_low, w_high, adjoint: bool = False):
     (B, H, Wh, I), the gradient to x).  Raises on anything else, and on an
     input that needs a gradient; it never falls back.  The checks are kept
     short: the observer serves four of these calls per step and the host
-    is what its loop waits for."""
+    is what its loop waits for.  `launches` counts every launch,
+    `adjoint_launches` those with `adjoint`."""
     if torch.is_grad_enabled() and (x_ft.requires_grad or w_low.requires_grad
                                     or w_high.requires_grad):
         raise RuntimeError(
@@ -272,10 +273,12 @@ def spectral_corners_kernel(x_ft, w_low, w_high, adjoint: bool = False):
     if err:
         cuda_build.check(err, "pde_spectral_corners")
     spectral_corners_kernel.launches += 1
+    spectral_corners_kernel.adjoint_launches += adjoint
     return out_ft
 
 
 spectral_corners_kernel.launches = 0
+spectral_corners_kernel.adjoint_launches = 0
 
 
 def _adjoint_weight(view):

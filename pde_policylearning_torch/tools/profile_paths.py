@@ -27,6 +27,13 @@ loop also the corner-contraction
 kernel's share of device time, its launches per step and device us per
 launch, the host ms per step spent enqueuing the policy and the env step,
 and the device launches and device us of one observer forward on its own.
+Then the `rno` and `transformer` loops (100 steps each through kernel D,
+the seeded `RNO2dObserver(12, 12, 34)` and `SimpleTransformer(n_hidden 96,
+2 heads, fourier, freq_dim 48, 12 modes)` on the plane repeated over two
+steps, the same shaping), and one training step of each observer at its
+config's batch (FNO2dObserver(12, 12, 32) B 20, RNO B 32, transformer
+B 20 sequences of 2; Adam with the coupled decay, the relative L2 loss, on
+seeded inputs), 20 steps a run: the same keys per step.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -42,7 +49,8 @@ from ..control import make_policy, run_closed_loop
 from ..envs import NSControlEnv
 from ..envs import channel_flow as cf
 from ..envs import rk3_cuda as rk
-from ..models import FNO2dObserver
+from ..models import FNO2dObserver, RNO2dObserver, SimpleTransformer
+from ..training import adam_l2, relative_l2_loss
 from . import card_name
 
 
@@ -107,9 +115,16 @@ def measure(fn, n_env_steps: int, n_steps: int):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.count, e.self_device_time_total)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    # device kernels by name; a range the host annotated (the optimizer's
+    # `Optimizer.step`) also shows on the device's timeline, over the
+    # kernels it holds, and is left out
+    agg = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            n, t = agg.get(e.name, (0, 0.0))
+            agg[e.name] = (n + 1, t + e.self_device_time_total)
+    kernels = [(k, n, t) for k, (n, t) in agg.items()]
     return summarize(kernels, sorted(walls)[1], n_env_steps, n_steps)
 
 
@@ -151,6 +166,65 @@ def observer_forward(observer, Nx: int, Nz: int, n: int = 50):
         device_launches_per_observer_forward=sum(e.count for e in ka) / n,
         device_us_per_observer_forward=sum(e.self_device_time_total
                                            for e in ka) / n)
+
+
+def training_steps(model, x, y, n_steps: int):
+    """`n_steps` training steps of `model` on one batch (x, y): forward,
+    the relative L2 loss, backward (the corner kernel's adjoint and
+    strided entries), Adam with the coupled decay."""
+    opt = adam_l2(model.parameters(), 1e-3, 1e-4)
+
+    def run():
+        for _ in range(n_steps):
+            opt.zero_grad(set_to_none=True)
+            relative_l2_loss(model(x).reshape(y.shape), y).backward()
+            opt.step()
+    return run
+
+
+def observer_paths(env, closed_steps: int = 100, train_steps: int = 20):
+    """The `rno` and `transformer` loops and one training step of each
+    observer (see the module docstring)."""
+    dev = torch.device("cuda")
+    res = {}
+
+    def seeded():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return gen
+
+    rno = RNO2dObserver(12, 12, 34, generator=seeded())
+    transformer = SimpleTransformer(
+        n_hidden=96, n_head=2, attention_type="fourier", freq_dim=48,
+        fourier_modes=12, generator=seeded())
+    for name, model in (("rno", rno), ("transformer", transformer)):
+        model.requires_grad_(False)
+        policy = make_policy(name, env.grid, model=model, detect_plane=25,
+                             model_timestep=2, action_scale=0.3,
+                             action_clip=0.01)
+        key = f"B1_closed_{name}_kernelD"
+        res[key] = measure(
+            lambda: run_closed_loop(env, policy, n_steps=closed_steps,
+                                    log_interval=closed_steps,
+                                    verbose=False),
+            closed_steps, closed_steps)
+        res[key].update(host_segments(env, policy, closed_steps))
+        print(key, json.dumps(res[key]), flush=True)
+        model.requires_grad_(True)
+    gen = seeded()
+    fno = FNO2dObserver(12, 12, 32, generator=gen)
+    for name, model, shape in (("fno", fno, (20, 32, 32, 1)),
+                               ("rno", rno, (32, 2, 32, 32, 1)),
+                               ("transformer", transformer,
+                                (20, 2, 32, 32, 1))):
+        x = torch.randn(shape, generator=gen, device=dev)
+        y_shape = shape[:1] + shape[2:] if name == "rno" else shape
+        y = torch.randn(y_shape, generator=gen, device=dev)
+        key = f"train_step_{name}_B{shape[0]}"
+        res[key] = measure(training_steps(model, x, y, train_steps),
+                           shape[0], train_steps)
+        print(key, json.dumps(res[key]), flush=True)
+    return res
 
 
 def profile_paths(B: int = 8, batched_steps: int = 100,
@@ -198,6 +272,7 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
             observer_forward(observer, grid.Nx, grid.Nz))
         print("B1_closed_fno_kernelD",
               json.dumps(res["B1_closed_fno_kernelD"]), flush=True)
+        res.update(observer_paths(env))
     finally:
         rk.FULLSTEP = saved
     return res

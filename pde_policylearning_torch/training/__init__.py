@@ -1,0 +1,10 @@
+"""Observer training: optimizers and schedules, checkpoints, the
+trainer."""
+from .checkpoint import load_checkpoint, save_checkpoint
+from .optimizers import (AdamL2, NesterovAdam, adam_l2, multistep_lr,
+                         negadam, step_lr)
+from .trainer import Trainer, relative_l2_loss
+
+__all__ = ["load_checkpoint", "save_checkpoint", "AdamL2", "NesterovAdam",
+           "adam_l2", "multistep_lr", "negadam", "step_lr", "Trainer",
+           "relative_l2_loss"]

@@ -71,7 +71,7 @@ def test_rand_policy_runs(envs):
 def test_unported_policy_names_the_roadmap_item():
     env_grid = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu").grid
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        make_policy("rno", env_grid)
+        make_policy("optimal-policy-observer", env_grid)
 
 
 def test_divergence_guard():

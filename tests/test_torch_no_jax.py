@@ -42,3 +42,36 @@ def test_port_names_no_path_into_the_jax_package():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
     assert not offenders, f"build a path into the JAX package: {offenders}"
+
+
+_IMPORT_TPU = re.compile(
+    r"^\s*(import\s+pde_policylearning_tpu\b|from\s+pde_policylearning_tpu\b"
+    r"|from\s+\.\.+\s*import\s+pde_policylearning_tpu\b)", re.MULTILINE)
+
+
+def test_port_never_imports_the_jax_package():
+    """No module of the port (the models, policies, training stack, data,
+    native loader and entries of every slice) nor the smoke script imports
+    pde_policylearning_tpu."""
+    files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    names = {f.name for f in files}
+    assert {"rno.py", "transformer.py", "dispatcher.py", "trainer.py",
+            "optimizers.py", "checkpoint.py", "losses.py", "loader.py",
+            "config.py", "logging.py", "run_pde_observers.py"} <= names
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _IMPORT_TPU.search(f.read_text())]
+    assert not offenders, f"imports the JAX package: {offenders}"
+
+
+def test_native_loader_is_the_ports_own_copy():
+    """The parallel .npy loader lies inside the port's package, byte for
+    byte the JAX package's source; its library is built at first use and
+    never committed (`*.so` is ignored)."""
+    ours = ROOT / "pde_policylearning_torch" / "native"
+    theirs = ROOT / "pde_policylearning_tpu" / "native"
+    for name in ("loader.py", "fastloader.c"):
+        assert (ours / name).read_bytes() == (theirs / name).read_bytes()
+    from pde_policylearning_torch.native import loader
+    assert Path(loader.__file__).resolve().parent == ours.resolve()
+    assert "*.so" in (ROOT / ".gitignore").read_text().split()

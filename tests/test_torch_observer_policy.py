@@ -185,11 +185,12 @@ def test_contractions_per_control_step(setup, name, per_step, monkeypatch):
 
 def test_policy_needs_its_model_and_unported_names_say_so():
     grid = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu").grid
-    for name in ("fno", "optimal-observer"):
+    for name in ("fno", "rno", "transformer", "optimal-observer"):
         with pytest.raises(ValueError, match="needs the observer"):
             make_policy(name, grid)
-    for name in ("rno", "transformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    for name in ("optimal-policy-observer", "fullfield-optimal-observer"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1 item 4"):
             make_policy(name, grid)
     with pytest.raises(ValueError, match="Not supported policy name"):
         make_policy("pid", grid)
@@ -248,3 +249,89 @@ def test_slice_end_to_end_float32(tmp_path):
         for k in SCOREBOARD_KEYS:
             assert res["series"][k].shape == (4,)
             assert np.isfinite(res["series"][k]).all()
+
+
+def _sequence_observer(name, rng):
+    """A flax observer of (B, T, 8, 8, 1) sequences with numpy parameters
+    on the shapes of its tree, and the port's with the same ones."""
+    from pde_policylearning_tpu.models.observers import \
+        RNO2dObserver as JRNO2dObserver
+    from pde_policylearning_tpu.models.transformer import \
+        SimpleTransformer as JSimpleTransformer
+    from pde_policylearning_torch.models import (RNO2dObserver,
+                                                 SimpleTransformer)
+    if name == "rno":
+        jmodel = JRNO2dObserver(3, 3, 6)
+        model = RNO2dObserver(3, 3, 6, device="cpu", dtype=torch.float64)
+    else:
+        kw = dict(n_hidden=8, n_head=2, freq_dim=6, fourier_modes=3,
+                  num_encoder_layers=2, num_regressor_layers=2)
+        jmodel = JSimpleTransformer(**kw)
+        model = SimpleTransformer(**kw, device="cpu", dtype=torch.float64)
+    shapes = jax.eval_shape(
+        lambda x: jmodel.init(jax.random.PRNGKey(0), x),
+        jnp.zeros((1, 2, 8, 8, 1)))["params"]
+    tree = jax.tree.map(lambda s: 0.2 * rng.normal(size=s.shape), shapes)
+    load_jax_params(model, tree)
+    model.requires_grad_(False)
+    return jmodel, jax.tree.map(jnp.asarray, tree), model
+
+
+@pytest.mark.parametrize("name", ["rno", "transformer"])
+def test_sequence_observer_closed_loops_match_jax(setup, name):
+    """Six closed-loop steps of the `rno` and `transformer` policies: the
+    plane repeated over model_timestep = 2 steps, the transformer's last
+    step, then scale, clip and the mean subtraction; float64, 1e-8, zero
+    net flux after the clip."""
+    jenv, env, (_, _, jn), (_, n) = setup
+    rng = np.random.default_rng(12)
+    jmodel, jparams, model = _sequence_observer(name, rng)
+    # the seeded observers predict nearly flat planes: a velocity
+    # normalizer that varies over the plane makes the clip bite on a part
+    m, sd = 0.05 * rng.normal(size=(8, 8)), 0.5 + rng.random((8, 8))
+    jv, v = JNorm(jnp.asarray(m), jnp.asarray(sd)), \
+        NormalizerGivenMeanStd(torch.as_tensor(m), torch.as_tensor(sd))
+    kw = dict(detect_plane=DP, model_timestep=2, action_scale=0.3,
+              action_clip=0.1)
+    out = assert_loops_match(
+        jenv, env,
+        jmake_policy(name, jenv.grid, model=jmodel, params=jparams,
+                     p_norm=jn["p"], v_norm=jv, **kw),
+        make_policy(name, env.grid, model=model, p_norm=n["p"], v_norm=v,
+                    **kw), 6)
+    assert np.abs(out["opV2"].mean(axis=(1, 2))).max() < 1e-12
+    first = out["opV2"][0]
+    on_clip = max((np.abs(first - e) < 1e-12).sum()
+                  for e in (first.min(), first.max()))
+    assert np.ptp(first) <= 0.2 + 1e-12 and 4 <= on_clip <= 60
+
+
+@pytest.mark.parametrize("name,per_step", [("rno", 28), ("transformer", 2)])
+def test_sequence_observer_contractions_per_step(name, per_step,
+                                                 monkeypatch):
+    """Through the kernel route in float32: every `rno` step runs 28
+    corner contractions (8 per cell step over 2 + 1 scanned steps, 2 of
+    the regressor per predict step), every `transformer` step one per
+    regressor layer; all forward, no weight gradient."""
+    calls, strided = [], []
+    real, real_contract = spectral_cuda._corners, spectral_cuda._contract
+    monkeypatch.setattr(
+        spectral_cuda, "_corners", lambda *a, adjoint=False:
+        calls.append(adjoint) or real(*a, adjoint=adjoint))
+    monkeypatch.setattr(
+        spectral_cuda, "_contract",
+        lambda *a, **k: strided.append(k) or real_contract(*a, **k))
+    _, _, model64 = _sequence_observer(name, np.random.default_rng(13))
+    model = model64.float()
+    for m in model.modules():
+        if hasattr(m, "conv_backend"):
+            m.conv_backend = "kernel"
+    env = NSControlEnv(**SMALL, noise_scale=0.02, seed=1, device="cpu")
+    policy = make_policy(name, env.grid, model=model, detect_plane=DP,
+                         model_timestep=2, action_scale=0.3,
+                         action_clip=0.01)
+    res = run_closed_loop(env, policy, n_steps=2, log_interval=2,
+                          detect_plane=DP, verbose=False)
+    assert calls == [False] * (2 * per_step) and not strided
+    for k in SCOREBOARD_KEYS:
+        assert np.isfinite(res["series"][k]).all()

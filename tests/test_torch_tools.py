@@ -5,6 +5,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from pde_policylearning_torch.envs import rk3_cuda as rk
 from pde_policylearning_torch.native import cuda_build
@@ -31,6 +32,32 @@ def test_drag_rows_cli_writes_both_rows(tmp_path):
         assert res[name]["kernel_d_launches"] == 0
     assert res["drag_change"] == pytest.approx(
         res["gt"]["tail"] / res["unmanipulated"]["tail"] - 1)
+
+
+def test_drag_rows_fno_row_serves_a_trained_checkpoint(tmp_path,
+                                                      monkeypatch):
+    """The `fno` row: a checkpoint of the observer (here a small one in
+    the place of FNO2dObserver(12, 12, 32)), the normalizers of a folder's
+    first planes, its drag change against `unmanipulated`."""
+    from pde_policylearning_torch.data import generate_channel_dataset
+    from pde_policylearning_torch.envs import NSControlEnv
+    from pde_policylearning_torch.models import FNO2dObserver
+    from pde_policylearning_torch.training import save_checkpoint
+
+    def small(*_, **kw):
+        return FNO2dObserver(4, 4, 6, **kw)
+    monkeypatch.setattr(drag_rows, "FNO2dObserver", small)
+    ckpt = save_checkpoint(str(tmp_path / "fno.pt"), small(
+        device="cpu", generator=torch.Generator().manual_seed(0)))
+    env = NSControlEnv(8, 33, 8, detect_plane=5, seed=0, device="cpu")
+    data = generate_channel_dataset(str(tmp_path / "planes"), 5, env=env,
+                                    detect_plane=5)
+    res, series = drag_rows.drag_rows(4, False, "cpu", (8, 33, 8),
+                                      fno=ckpt, data=data)
+    assert set(series) == {"unmanipulated", "gt", "fno"}
+    assert np.isfinite(series["fno"]).all()
+    assert res["fno"]["drag_change"] == pytest.approx(
+        res["fno"]["tail"] / res["unmanipulated"]["tail"] - 1)
 
 
 def test_drag_rows_staged_matches_kernel_d_plain():
