@@ -96,7 +96,23 @@ result):
      route (loss <= 1e-6, every parameter gradient rel L2 <= 1e-5).  The
      backward entries (the fused entry's adjoint, the strided entry) are
      held and timed at those two training shapes in phase 3, beside their
-     bounds and one `einsum`.
+     bounds and one `einsum`;
+  9. the flagship gradient-control slice: a 64-step `gt` dataset with its
+     U, V, W fields, run_pde_observers.main on
+     configs/fullfield_pi_short.yaml (the full-width PINObserverFullField,
+     physics-informed loss) for 2 epochs with ntrain / ntest cut to the
+     dataset: the loss finite and falling, the checkpoint reloaded
+     (`eval_ckpt`) to the same held-out rel-L2 bit for bit; then
+     `optimal-policy-observer` (a zeroed full-width PolicyModel2D) and the
+     full-field `optimal-observer` through the seeded full-width observer
+     at opt_steps 3 and 10, 200 steps each, one warm-up and three timed
+     runs: exactly one kernel-D launch per step and no corner launch (the
+     PINO convs are 3-D), finite series, net flux <= 1e-6; then each
+     policy (the residual one seeded) replayed as CUDA graphs against
+     itself run eagerly, over one control step from one state and over
+     20 closed-loop steps, and against the plain env step over 20 steps;
+     every kernel of the path (kernel D, the Poisson solve, the wall
+     pair) launched over the phase.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -229,6 +245,13 @@ LAUNCHES_B1_GT_STEP = 86
 # its float32 pressure RHS puts both far from float64 (0.6 .. 3e2), beside
 # which the two solves differ by ~1e-4: 1.000 in every reading.
 WALL_TALL = {"phase 2": (1.0, 1.5), "kernel C": (1.01, 1.01)}
+
+
+T_START = time.perf_counter()
+
+
+def elapsed() -> str:
+    return f"[{time.perf_counter() - T_START:.0f} s]"
 
 
 def main() -> int:
@@ -1381,7 +1404,8 @@ def main() -> int:
         observer_plain)), 1e-5)
 
     # 4. the main path ------------------------------------------------------
-    log("main path: NSControlEnv(32, 130, 32) + gt, run_closed_loop 2000")
+    log(f"{elapsed()} main path: NSControlEnv(32, 130, 32) + gt, "
+        "run_closed_loop 2000")
     rk.FULLSTEP = True
     kernels = {"rk3_fullstep": rk.env_step_full_kb_kernel,
                "poisson": pc.poisson_solve_kernel,
@@ -1438,7 +1462,8 @@ def main() -> int:
 
     # 5. the data-collection path -------------------------------------------
     B, T = 8, 500
-    log(f"data collection: batched_rollout of {B} envs, {T} gt steps")
+    log(f"{elapsed()} data collection: batched_rollout of {B} envs, {T} "
+        "gt steps")
     staged = {"rk3_substage": rk.substage_kernel,
               "rk3_solve_correct": rk.solve_correct_kernel,
               "boundary_batched": rk.boundary_kernel}
@@ -1516,7 +1541,7 @@ def main() -> int:
         f"{float(dataset.v_norm.std.mean()):.3e}")
 
     # 6. the observer-policy path -------------------------------------------
-    log("observer-policy path: FNO2dObserver(12, 12, 32) serving")
+    log(f"{elapsed()} observer-policy path: FNO2dObserver(12, 12, 32) serving")
     shaping = dict(model=observer, detect_plane=dp, p_norm=dataset.p_norm,
                    v_norm=dataset.v_norm)
 
@@ -1599,7 +1624,8 @@ def main() -> int:
                 corner.adjoint_launches, strided_entry.launches)
 
     # 7. the observer zoo serving -------------------------------------------
-    log("observer zoo at full width, seeded: RNO2dObserver(12, 12, 34), "
+    log(f"{elapsed()} observer zoo at full width, seeded: "
+        "RNO2dObserver(12, 12, 34), "
         "SimpleTransformer(96, 2 heads, fourier, freq_dim 48, 12 modes, 8 + "
         "3 layers), UNet(spectral, 12 modes)")
     from pde_policylearning_torch import models as zoo
@@ -1687,7 +1713,7 @@ def main() -> int:
         t0 = time.perf_counter()
         generate_channel_dataset(folder, n_gen, env=fresh_env(),
                                  detect_plane=dp)
-        log(f"observer training: a {n_gen}-step gt dataset in "
+        log(f"{elapsed()} observer training: a {n_gen}-step gt dataset in "
             f"{time.perf_counter() - t0:.1f} s; run_pde_observers.main, "
             f"{epochs} epochs each, widths as configured")
 
@@ -1759,7 +1785,179 @@ def main() -> int:
             check(f"{args.model_name} B={B} training step: worst parameter "
                   "gradient", max(rel(a, b) for a, b in zip(gk, gp)), 1e-5)
 
-    log(f"profiler: {SHORT_READINGS[1]} of {SHORT_READINGS[0]} readings "
+    # 9. the flagship gradient-control slice --------------------------------
+    from pde_policylearning_torch.control import (
+        make_fullfield_optimal_observer, make_optimal_policy_observer)
+    from pde_policylearning_torch.models import PolicyModel2D
+    from pde_policylearning_torch.tools import drag_rows as dr
+    # every kernel of the path counted from here to the end of the phase:
+    # the dataset's rollout, the env constructions, the loops
+    zero_counts()
+    n_ff, ff_epochs = 64, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "fullfield")
+        t0 = time.perf_counter()
+        generate_channel_dataset(folder, n_ff, env=fresh_env(),
+                                 detect_plane=dp, save_fields=True)
+        log(f"{elapsed()} flagship slice: a {n_ff}-step gt dataset with its "
+            "fields in "
+            f"{time.perf_counter() - t0:.1f} s; run_pde_observers.main on "
+            f"fullfield_pi_short.yaml, {ff_epochs} epochs, widths as "
+            "configured")
+        args = load_yaml(os.path.join(here, "configs",
+                                      "fullfield_pi_short.yaml"))
+        # batches of 8, so that an epoch is 7 steps: the first Adam step
+        # from the initial draw overshoots (in the JAX package too)
+        args.update(DATA_FOLDER=folder, epochs=ff_epochs, set_epoch=-1,
+                    ntrain=56, ntest=8, batch_size=8,
+                    out_dir=os.path.join(tmp, "out"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = rpo.main(args, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        total = hist["total"]
+        if not (np.isfinite(total + hist["data"] + hist["pde"]).all()
+                and total[-1] < total[0]):
+            FAILED.append(f"full-field training: loss {total} does not fall")
+        args.eval_ckpt = hist["checkpoint"]
+        _, again = rpo.main(args, device=dev)
+        if again["test_rel_l2"] != hist["test_rel_l2"]:
+            FAILED.append("full-field checkpoint reloads to held-out rel-L2 "
+                          f"{again['test_rel_l2']!r}, training read "
+                          f"{hist['test_rel_l2']!r}")
+        log(f"  total {total}, data {hist['data']}, pde {hist['pde']}; "
+            f"held-out rel-L2 {hist['test_rel_l2']!r} (reloaded "
+            f"{again['test_rel_l2']!r}); {dt:.1f} s, "
+            f"{[round(1e3 * t, 1) for t in hist['epoch_time']]} ms an epoch "
+            f"of {56 // args.batch_size} steps of {args.batch_size}  ({smi})")
+        norm = dr.top_plane_norm(folder, dev)
+    flagship = dict(training=dict(
+        loss=total, test_rel_l2=hist["test_rel_l2"], seconds=dt,
+        ms_per_epoch=[1e3 * t for t in hist["epoch_time"]]))
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    ff_observer = dr.fullfield_observer(None, dev, g)
+    n_pol = 200
+    for name, opt_steps in (("optimal-policy-observer", 3),
+                            ("optimal-policy-observer", 10),
+                            ("optimal-observer", 3), ("optimal-observer", 10)):
+        env = fresh_env()
+        policy = dr.flagship_policy(name, env, ff_observer, norm, opt_steps)
+        rates = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            n0 = rk.env_step_full_kb_kernel.launches
+            c0 = corner_counts()
+            t0 = time.perf_counter()
+            res = run_closed_loop(env, policy, n_steps=n_pol,
+                                  log_interval=n_pol, detect_plane=dp,
+                                  verbose=False, collect_planes=(i == 0))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if i:
+                rates.append(n_pol / dt)
+            else:
+                actions = res["opV2"]
+            got = (rk.env_step_full_kb_kernel.launches - n0,
+                   *(b - a for a, b in zip(c0, corner_counts())))
+            if got != (n_pol, 0, 0, 0):
+                raise AssertionError(
+                    f"{name}: (kernel D, corner forward, adjoint, strided) "
+                    f"launches {got} over {n_pol} steps, expected "
+                    f"{(n_pol, 0, 0, 0)}")
+            for k, v in res["series"].items():
+                if not np.isfinite(v).all():
+                    raise AssertionError(f"{name}: non-finite {k}")
+        flux = np.abs(actions.mean(axis=(1, 2))).max()
+        shear = res["series"]["drag_reduction/1_shear_stress"]
+        log(f"  {name}, opt_steps {opt_steps}: steps/s runs "
+            f"{[round(r, 2) for r in rates]} median {sorted(rates)[1]:.2f}  "
+            f"({smi}); kernel D {n_pol} per run; shear last {shear[-1]:.6e},"
+            f" max |opV2| {np.abs(actions).max():.3e}, max |plane mean| "
+            f"{flux:.1e}")
+        if flux > 1e-6:
+            raise AssertionError(f"{name}: actuation has a net flux {flux}")
+        flagship[f"{name} opt_steps {opt_steps}"] = dict(
+            steps_per_s=rates, median=sorted(rates)[1])
+        del policy
+
+    # 20 steps from the same state: each policy replayed as CUDA graphs on
+    # kernel D, against itself run eagerly and against the plain env step.
+    # The residual policy is a seeded PolicyModel2D with its output layer
+    # scaled by 1e-3 (the zeroed one only moves a constant, which the
+    # zero-flux step removes)
+    policy_model = PolicyModel2D(**dr.FULL_WIDTH, device=dev, generator=g)
+    with torch.no_grad():
+        for prm in policy_model.head.fc2.parameters():
+            prm.mul_(1e-3)
+    kernel_d = rk.env_step_full_kb_kernel
+
+    def flagship_pair(name, e, graph):
+        if name == "optimal-observer":
+            return make_fullfield_optimal_observer(
+                e.grid, observer_model=ff_observer, bound_v_norm=norm,
+                detect_plane=dp, cuda_graph=graph)
+        return make_optimal_policy_observer(
+            e.grid, observer_model=ff_observer, policy_model=policy_model,
+            detect_plane=dp, cuda_graph=graph)
+
+    # (opV2, U) limits of the 20-step loops, read on an H100: the
+    # residual policy's loops part by 3e-5 and 3e-7.  The full-field
+    # `optimal-observer`'s Adam moves every entry of the action by about
+    # +-lr whatever its gradient's size, so an entry whose gradient is
+    # near zero flips its step with the last bit, and its loops part by
+    # 3.4e-2 and 7.3e-5 (5.4e-3 and 3.0e-5 against the plain env step)
+    # where one control step from one state agrees to float32 rounding
+    loop_tol = {"optimal-policy-observer": (1e-4, 1e-5),
+                "optimal-observer": (0.1, 3e-4)}
+    for name in dr.FLAGSHIP:
+        e = fresh_env()
+        kst = rk.state_to_kstate(e.state)
+        _, p2_0 = cf.boundary_pressures(e.grid, e.state)
+        one = []
+        for graph in (True, False):
+            pol = flagship_pair(name, e, graph)
+            one.append(pol(pol.init_carry(), kst, p2_0, None)[1])
+        check(f"one {name} step from one state, CUDA graph against eager: "
+              "opV2", rel(*one), 1e-5)
+        routes = {}
+        for graph, plain in ((True, False), (False, False), (True, True)):
+            e = fresh_env()
+            pol = flagship_pair(name, e, graph)
+            if plain:
+                rk.env_step_full_kb_kernel = rk.env_step_full_kb_plain
+            try:
+                routes[graph, plain] = (run_closed_loop(
+                    e, pol, n_steps=20, log_interval=20, detect_plane=dp,
+                    verbose=False, collect_planes=True), e)
+            finally:
+                rk.env_step_full_kb_kernel = kernel_d
+        r_k, e_k = routes[True, False]
+        # `gt`'s action is -v_plane of the step before
+        log(f"  20 {name} steps: off gt by at most "
+            f"{np.abs(r_k['opV2'][1:] + r_k['v_plane'][:-1]).max():.3e}, "
+            f"actions at most {np.abs(r_k['opV2']).max():.3e}")
+        for (r, e), what in ((routes[False, False], "run eagerly"),
+                             (routes[True, True], "on the plain env step")):
+            check(f"20 {name} steps, CUDA graphs on kernel D against {what}:"
+                  " opV2", rel(torch.as_tensor(r_k["opV2"]),
+                               torch.as_tensor(r["opV2"])),
+                  loop_tol[name][0])
+            check(f"20 {name} steps, CUDA graphs on kernel D against {what}:"
+                  " U", rel(e_k.state.U, e.state.U), loop_tol[name][1])
+    flagship_launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"  launches over the phase: {flagship_launches}")
+    log("  flagship " + json.dumps(flagship))
+    for k, v in flagship_launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} not launched on the flagship "
+                                 "path")
+    del ff_observer, policy_model, pol, routes
+
+    log(f"{elapsed()} profiler: {SHORT_READINGS[1]} of {SHORT_READINGS[0]} "
+        "readings "
         "short of the most complete reading of their call")
     if FAILED:
         raise AssertionError("failed checks: " + "; ".join(FAILED))
@@ -1771,6 +1969,8 @@ def main() -> int:
     report["corner_contract"]["launches_rno"] = loop_runs["rno"]
     report["corner_contract"]["launches_transformer"] = \
         loop_runs["transformer"]
+    for k, v in flagship_launches.items():
+        report[k]["launches_flagship"] = v
     report["corner_contract"]["launches_training"] = {
         k: {n: v[n] for n in ("forward", "adjoint", "strided",
                                "per_training_step", "steps")}

@@ -6,7 +6,9 @@ in the kernel layout across a chunk, each step is one call of the env step
 when `PDE_RK3_FULLSTEP=0`), and the 9 scoreboard values of every step
 go into one (9, n) device tensor: the host reads it once per chunk, for
 logging and the divergence guard (run_control.py:294-295 of the
-reference).  No per-step `.item()` or `float()`.
+reference).  No per-step `.item()` or `float()`.  A policy with a carry
+(`policies.StatefulPolicy`) has it threaded from step to step and chunk
+to chunk, each run starting from the policy's `init_carry()`.
 """
 from __future__ import annotations
 
@@ -33,11 +35,14 @@ SCOREBOARD_KEYS = (
 
 def closed_loop_chunk(grid, state, p2, policy_fn: Callable, n_steps: int,
                       generator: torch.Generator,
-                      collect_planes: bool = False, detect_plane: int = 25):
-    """Run `n_steps` control steps from `state` ((x, y, z) layout).
+                      collect_planes: bool = False, policy_carry=None,
+                      detect_plane: int = 25):
+    """Run `n_steps` control steps from `state` ((x, y, z) layout).  With
+    a `policy_carry` (not None) the policy is called as
+    `policy_fn(carry, state, p2, generator) -> (opV1, opV2, carry)`.
 
-    Returns ``(state, p2, outs)``: ``outs[0]`` is the (9, n_steps)
-    scoreboard on the device in SCOREBOARD_KEYS order; with
+    Returns ``(state, p2, policy_carry, outs)``: ``outs[0]`` is the
+    (9, n_steps) scoreboard on the device in SCOREBOARD_KEYS order; with
     ``collect_planes`` the (n_steps, Nx, Nz) p2, opV2 and v_plane series
     follow."""
     Nx, Nz = grid.Nx, grid.Nz
@@ -49,7 +54,11 @@ def closed_loop_chunk(grid, state, p2, policy_fn: Callable, n_steps: int,
         planes = [torch.empty((n_steps, Nx, Nz), dtype=dtype, device=dev)
                   for _ in range(3)]
     for i in range(n_steps):
-        opV1, opV2 = policy_fn(st, p2, generator)
+        if policy_carry is not None:
+            opV1, opV2, policy_carry = policy_fn(policy_carry, st, p2,
+                                                 generator)
+        else:
+            opV1, opV2 = policy_fn(st, p2, generator)
         st, p2, info = rk.env_step_k(grid, st, opV1, opV2)
         infos[:, i] = torch.stack([info[k] for k in SCOREBOARD_KEYS])
         if collect_planes:
@@ -57,7 +66,7 @@ def closed_loop_chunk(grid, state, p2, policy_fn: Callable, n_steps: int,
             planes[1][i] = opV2.reshape(Nx, Nz)
             planes[2][i] = st.V[st.V.shape[0] - detect_plane].reshape(Nx, Nz)
     outs = (infos,) + (tuple(planes) if collect_planes else ())
-    return rk.kstate_to_state(grid, st), p2, outs
+    return rk.kstate_to_state(grid, st), p2, policy_carry, outs
 
 
 def run_closed_loop(env, policy_fn, n_steps: int,
@@ -78,11 +87,14 @@ def run_closed_loop(env, policy_fn, n_steps: int,
     _, p2 = cf.boundary_pressures(env.grid, env.state)
     all_infos, all_planes = [], []
     done = 0
+    init_carry = getattr(policy_fn, "init_carry", None)
+    policy_carry = init_carry() if init_carry is not None else None
     while done < n_steps:
         n = min(log_interval, n_steps - done)
-        env.state, p2, outs = closed_loop_chunk(
+        env.state, p2, policy_carry, outs = closed_loop_chunk(
             env.grid, env.state, p2, policy_fn, n, generator,
-            collect_planes=collect_planes, detect_plane=detect_plane)
+            collect_planes=collect_planes, policy_carry=policy_carry,
+            detect_plane=detect_plane)
         outs = [o.cpu().numpy() for o in outs]        # one fetch per chunk
         infos = dict(zip(SCOREBOARD_KEYS, outs[0]))
         all_infos.append(infos)

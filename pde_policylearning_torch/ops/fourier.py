@@ -169,6 +169,28 @@ def spectral_conv_nd(
                          output_sizes)
 
 
+def spectral_conv_nd_dft_rule(x: torch.Tensor, weights: Sequence[dict],
+                              half_modes: Sequence[int], **kw
+                              ) -> torch.Tensor:
+    """`spectral_conv_nd` where the last (rfft) axis may keep more modes
+    than its spectrum holds, with the result the JAX package computes on
+    its TPU route for such a call: the truncated-DFT route
+    (`truncated_dft_conv_nd`), whose inverse drops every frequency row at
+    or past that axis's budget (`_idft_mats`: size // 2 + 1), so that the
+    modes past it feed nothing and their weights get an exactly zero
+    gradient.  That is this conv with that axis's modes cut to the budget
+    and the weights sliced to them (a view of the stored leaf, so only the
+    kept modes are ever made complex).  The other axes are held to their
+    spectrum as `spectral_conv_nd` holds them.  The PINO layers need it:
+    the full-field observer keeps 12 modes on a time axis of length 1."""
+    size = x.shape[len(half_modes)]
+    budget = size // 2 + 1
+    if half_modes[-1] > budget:
+        half_modes = (*half_modes[:-1], budget)
+        weights = [slice_weight_modes(w, half_modes) for w in weights]
+    return spectral_conv_nd(x, weights, half_modes, **kw)
+
+
 def spectral_conv_1d(x, weight, modes, **kw):
     """1-D special case: keep only low modes (spectral_convolution.py:382)."""
     return spectral_conv_nd(x, [weight], [modes], **kw)

@@ -1,20 +1,24 @@
 """Observer training entry of the port.
 
-Counterpart of the non-full-field branch of the repository's
-`run_pde_observers.py` (`main`; reference: run_pde_observers.py main :29,
-epoch loop :167-324): trains a wall-pressure -> velocity observer on
-channel-flow plane data, tracks the best test loss and saves the best
-parameters as a torch checkpoint.
+Counterpart of the repository's `run_pde_observers.py` (reference:
+run_pde_observers.py main :29, epoch loop :167-324): trains a
+wall-pressure -> velocity observer on channel-flow plane data, tracks the
+best test loss and saves the best parameters as a torch checkpoint, then
+with `run_control` hands the observer to the control loop
+(`run_control.run_control`).  A config naming `PINObserverFullField` or
+`FullFieldNSDataset` takes the physics-informed full-field branch
+(`main_fullfield`): the top wall's v-plane -> the V planes at
+`plane_indexs`, trained with `training.train_fullfield_observer`.
 
     python -m pde_policylearning_torch.run_pde_observers \\
         --train_yaml configs/base_fno.yaml [--device cpu]
 
 It reads the repository's configs as they are (`base_fno.yaml`,
-`matlab_rno.yaml`, `base_transformer.yaml`).  Without a dataset at
-`DATA_FOLDER` it generates one with the port's `generate_channel_dataset`
-(the `gt` policy) on the same device.  It runs on the card unless
-`--device` names another.  The full-field observer (`PINObserverFullField`)
-and the hand-off to the control loop (`run_control`) are not ported yet.
+`matlab_rno.yaml`, `base_transformer.yaml`, `fullfield_pi.yaml`,
+`fullfield_pi_short.yaml`).  Without a dataset at `DATA_FOLDER` it
+generates one with the port's `generate_channel_dataset` (the `gt`
+policy; with the U, V, W fields for the full-field branch) on the same
+device.  It runs on the card unless `--device` names another.
 """
 from __future__ import annotations
 
@@ -25,13 +29,14 @@ import numpy as np
 import torch
 
 from . import models
-from .data import PDEDataset, SequentialPDEDataset, generate_channel_dataset
-from .training import Trainer, save_checkpoint
+from .data import (FullFieldNSDataset, PDEDataset, SequentialPDEDataset,
+                   generate_channel_dataset)
+from .envs import channel_flow as cf
+from .training import (Trainer, eval_fullfield_observer, load_checkpoint,
+                       save_checkpoint, train_fullfield_observer)
 from .utils import (MetricsLogger, default_parser, load_yaml,
                     merge_args_with_yaml, resolve_device,
                     set_solver_precision)
-
-_FULLFIELD = "ROADMAP.md queue 1 item 4 (the flagship gradient-control slice)"
 
 
 def build_model(args, device=None, generator=None, conv_backend="auto"):
@@ -112,11 +117,13 @@ def load_arrays(args, device=None):
     return train_ds, (x_train, y_train), (x_test, y_test)
 
 
+def n_epochs(args) -> int:
+    return args.epochs if args.get("set_epoch", -1) <= 0 else args.set_epoch
+
+
 def make_trainer(args, model, decoder):
     return Trainer(
-        model,
-        n_epochs=args.epochs if args.get("set_epoch", -1) <= 0
-        else args.set_epoch,
+        model, n_epochs=n_epochs(args),
         batch_size=args.batch_size, learning_rate=args.learning_rate,
         weight_decay=args.get("weight_decay", 1e-4),
         step_size=args.get("step_size", 100), gamma=args.get("gamma", 0.5),
@@ -129,17 +136,98 @@ def checkpoint_path(args) -> str:
                         f"{args.path_name}_{args.exp_name}.pt")
 
 
+def grid_shape(args) -> tuple:
+    """The full-field branch's (Nx, Ny, Nz)."""
+    return (int(args.get("x_range", 32)), int(args.get("Ny", 130)),
+            int(args.get("y_range", 32)))
+
+
+def build_fullfield_model(args, plane_num: int, device=None, generator=None):
+    """`PINObserverFullField` from the config (run_pde_observers.py
+    :104-107), on `device`, drawn from `generator`."""
+    return models.PINObserverFullField(
+        plane_num=plane_num,
+        modes1=tuple(args.get("modes1", (8, 8, 8, 8))),
+        modes2=tuple(args.get("modes2", (8, 8, 8, 8))),
+        modes3=tuple(args.get("modes3", (1, 1, 1, 1))),
+        layers=tuple(args.get("layers", (args.get("width", 16),) * 5)),
+        fc_dim=int(args.get("fc_dim", 64)), in_dim=1,
+        pad_ratio=tuple(args.get("pad_ratio", (0.0, 0.0))),
+        generator=generator, device=device)
+
+
+def load_fullfield_data(args, device=None):
+    """(train dataset, test dataset or None, plane_indexs) of the
+    full-field branch: `DATA_FOLDER` generated first (`generate_steps`
+    steps with fields) where it holds no dataset, then the sequential
+    split, `ntrain` rows (default: all) and the next `ntest` (default:
+    none)."""
+    folder = args.DATA_FOLDER
+    nx, ny, nz = grid_shape(args)
+    if not os.path.exists(os.path.join(folder, "metadata.npy")):
+        n = int(args.get("generate_steps", 64))
+        print(f"Generating {n} full-field steps from the channel env...",
+              flush=True)
+        generate_channel_dataset(
+            folder, n, policy="gt", save_fields=True,
+            env_kwargs={"Nx": nx, "Ny": ny, "Nz": nz, "noise_scale": 0.05,
+                        "device": device})
+    total = len([f for f in os.listdir(folder) if f.startswith("U_field")])
+    plane_indexs = list(args.get("plane_indexs", [-2, -5, -10]))
+    timestep = int(args.get("model_timestep", 1))
+    ntrain = int(args.get("ntrain", total))
+    ntest = int(args.get("ntest", 0))
+    train_rows = np.arange(min(ntrain, total))
+    test_rows = np.arange(len(train_rows), min(ntrain + ntest, total))
+    ds, test_ds = (FullFieldNSDataset.from_folder(
+        folder, rows, plane_indexs, timestep=timestep, device=device)
+        if len(rows) else None for rows in (train_rows, test_rows))
+    return ds, test_ds, plane_indexs
+
+
+def main_fullfield(args, device):
+    """The physics-informed full-field branch (run_pde_observers.py
+    :200-239; the JAX entry's `main_fullfield`) on `device`: train the
+    configured `PINObserverFullField` (or, with `eval_ckpt`, reload it),
+    save the checkpoint before the held-out evaluation, and return (the
+    model's state dict, history); history['checkpoint'] is the file
+    written and history['test_rel_l2'] the held-out decoded rel-L2."""
+    ds, test_ds, plane_indexs = load_fullfield_data(args, device)
+    grid = cf.make_channel_grid(*grid_shape(args), device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = build_fullfield_model(args, len(plane_indexs), device, gen)
+    if args.get("eval_ckpt"):
+        load_checkpoint(str(args.eval_ckpt), model)
+        history = {}
+    else:
+        _, history = train_fullfield_observer(
+            model, ds, grid, plane_indexs=plane_indexs,
+            n_epochs=n_epochs(args), batch_size=int(args.batch_size),
+            learning_rate=float(args.learning_rate),
+            pde_loss_weight=float(args.get("pde_loss_weight", 0.0)),
+            generator=gen)
+        # saved before the evaluation, as the JAX entry does
+        history["checkpoint"] = save_checkpoint(
+            checkpoint_path(args), model, epoch=len(history["total"]))
+        print(f"Best model saved at {history['checkpoint']}!", flush=True)
+    if test_ds is not None:
+        history["test_rel_l2"] = eval_fullfield_observer(model, test_ds)
+        print(f"Held-out decoded data rel-L2 ({len(test_ds)} rows): "
+              f"{history['test_rel_l2']:.6f}", flush=True)
+    return dict(model.state_dict()), history
+
+
 def main(args, device=None):
     """Train the configured observer on `device` (None: `args.device`,
     else the card).  Returns (the best parameters as a state dict,
-    history); history['checkpoint'] is the file written."""
-    if args.get("model_name") == "PINObserverFullField" or \
-            args.get("dataset_name") == "FullFieldNSDataset":
-        raise NotImplementedError(
-            f"the full-field observer branch is not ported yet: {_FULLFIELD}")
+    history); history['checkpoint'] is the file written.  A full-field
+    config goes to `main_fullfield`."""
     device = resolve_device(device if device is not None
                             else args.get("device"))
     set_solver_precision()
+    if args.get("model_name") == "PINObserverFullField" or \
+            args.get("dataset_name") == "FullFieldNSDataset":
+        return main_fullfield(args, device)
     train_ds, train, test = load_arrays(args, device)
     gen = torch.Generator(device=device).manual_seed(0)
     model, _ = build_model(args, device=device, generator=gen)
@@ -167,9 +255,9 @@ def main(args, device=None):
                                             epoch=len(history["train_loss"]))
     print(f"Best model saved at {history['checkpoint']}!", flush=True)
     if args.get("run_control", False):
-        raise NotImplementedError(
-            "run_control after training is not ported yet: "
-            f"{_FULLFIELD}")
+        from .run_control import run_control
+        args.setdefault("policy_name", "fno")
+        run_control(args, model, train_ds, device)
     return best_state, history
 
 

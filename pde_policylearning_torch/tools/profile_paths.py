@@ -33,7 +33,15 @@ the seeded `RNO2dObserver(12, 12, 34)` and `SimpleTransformer(n_hidden 96,
 steps, the same shaping), and one training step of each observer at its
 config's batch (FNO2dObserver(12, 12, 32) B 20, RNO B 32, transformer
 B 20 sequences of 2; Adam with the coupled decay, the relative L2 loss, on
-seeded inputs), 20 steps a run: the same keys per step.
+seeded inputs), 20 steps a run: the same keys per step.  Last the
+flagship slice at full width (`configs/fullfield_pi.yaml`'s observer,
+seeded): the `optimal-policy-observer` loop (a zeroed full-width
+`PolicyModel2D`, 3 Adam steps a control step) and the full-field
+`optimal-observer` loop (10 Adam steps on the action, unit statistics),
+50 steps each through kernel D, and one full-field training step (B 32,
+the physics-informed loss at weight 1, Adam) on the fields of a 32-step
+`gt` rollout, 10 steps a run.  `--flagship-only` runs the last three
+alone.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -50,8 +58,9 @@ from ..envs import NSControlEnv
 from ..envs import channel_flow as cf
 from ..envs import rk3_cuda as rk
 from ..models import FNO2dObserver, RNO2dObserver, SimpleTransformer
-from ..training import adam_l2, relative_l2_loss
-from . import card_name
+from ..ops.normalization import NormalizerGivenMeanStd
+from ..training import adam_l2, fullfield_losses, relative_l2_loss
+from . import card_name, drag_rows
 
 
 def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
@@ -134,11 +143,16 @@ def host_segments(env, policy, n_steps: int):
     inside (the state is not written back to the env)."""
     _, p2 = cf.boundary_pressures(env.grid, env.state)
     st = rk.state_to_kstate(env.state)
+    init_carry = getattr(policy, "init_carry", None)
+    carry = init_carry() if init_carry is not None else None
     t_policy = t_env = 0.0
     torch.cuda.synchronize()
     for _ in range(n_steps):
         t0 = time.perf_counter()
-        op1, op2 = policy(st, p2, None)
+        if carry is not None:
+            op1, op2, carry = policy(carry, st, p2, None)
+        else:
+            op1, op2 = policy(st, p2, None)
         t1 = time.perf_counter()
         st, p2, _ = rk.env_step_k(env.grid, st, op1, op2)
         t_policy += t1 - t0
@@ -227,8 +241,66 @@ def observer_paths(env, closed_steps: int = 100, train_steps: int = 20):
     return res
 
 
+def fullfield_batch(env, B: int = 32, planes=(-10, -8, -6)):
+    """A full-field training batch at the env's grid: the U, V, W fields
+    of a B-step `gt` rollout from the env's state (sequences of one step),
+    its top V plane and the V planes at `planes` encoded by their own
+    statistics over the batch; returns (the normalizer, the arrays in
+    `fullfield_losses`' order)."""
+    grid = env.grid
+    _, outs = cf.rollout(grid, env.state, B, policy="gt",
+                         collect_fields=True)
+    dpdx = outs[2].reshape(B, 1)
+    U, V, W = (a[:, None] for a in outs[3:])       # (B, 1, Nx, Ny, Nz)
+    top = V[..., -1, :]
+    norm = NormalizerGivenMeanStd(top.mean(0)[0],
+                                  top.std(0, correction=0)[0] + 1e-8)
+    v_field = torch.stack([norm.encode(V[..., i, :]) for i in planes], 2)
+    re = torch.full((B,), 178.1899, device=U.device)
+    return norm, (norm.encode(top), v_field, U, V, W, dpdx, re)
+
+
+def flagship_paths(env, closed_steps: int = 50, train_steps: int = 10):
+    """The flagship slice's two loops and one full-field training step
+    (see the module docstring)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    observer = drag_rows.fullfield_observer(None, dev, gen)
+    unit = NormalizerGivenMeanStd(torch.zeros((), device=dev),
+                                  torch.ones((), device=dev))
+    res = {}
+    for name, key in (("optimal-policy-observer", "opo"),
+                      ("optimal-observer", "fullfield_optimal_observer")):
+        policy = drag_rows.flagship_policy(name, env, observer, unit)
+        key = f"B1_closed_{key}_kernelD"
+        res[key] = measure(
+            lambda: run_closed_loop(env, policy, n_steps=closed_steps,
+                                    log_interval=closed_steps,
+                                    verbose=False),
+            closed_steps, closed_steps)
+        res[key].update(host_segments(env, policy, closed_steps))
+        print(key, json.dumps(res[key]), flush=True)
+        del policy
+    del observer
+    model = drag_rows.fullfield_observer(None, dev, gen).requires_grad_(True)
+    norm, batch = fullfield_batch(env)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    def run():
+        for _ in range(train_steps):
+            opt.zero_grad(set_to_none=True)
+            fullfield_losses(model, env.grid, norm, (-10, -8, -6), 1.0,
+                             *batch)[0].backward()
+            opt.step()
+    res["train_step_fullfield_B32"] = measure(run, 32, train_steps)
+    print("train_step_fullfield_B32",
+          json.dumps(res["train_step_fullfield_B32"]), flush=True)
+    return res
+
+
 def profile_paths(B: int = 8, batched_steps: int = 100,
-                  closed_steps: int = 200):
+                  closed_steps: int = 200, flagship_only: bool = False):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_paths needs a CUDA card")
     dev = torch.device("cuda")
@@ -247,6 +319,13 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
             verbose=False), closed_steps, closed_steps)}
     res = {"card": card_name()}
     saved = rk.FULLSTEP
+    if flagship_only:
+        rk.FULLSTEP = True
+        try:
+            res.update(flagship_paths(env))
+        finally:
+            rk.FULLSTEP = saved
+        return res
     try:
         for fullstep in (False, True):
             rk.FULLSTEP = fullstep
@@ -273,6 +352,7 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
         print("B1_closed_fno_kernelD",
               json.dumps(res["B1_closed_fno_kernelD"]), flush=True)
         res.update(observer_paths(env))
+        res.update(flagship_paths(env))
     finally:
         rk.FULLSTEP = saved
     return res
@@ -280,9 +360,10 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--flagship-only", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    res = profile_paths()
+    res = profile_paths(flagship_only=args.flagship_only)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_paths.json"), "w") as f:

@@ -69,9 +69,14 @@ def test_rand_policy_runs(envs):
 
 
 def test_unported_policy_names_the_roadmap_item():
+    """`optimal-policy-observer` is ported as a factory of its own
+    (`make_optimal_policy_observer`), as in the JAX package, whose
+    `make_policy` refuses the name as this one does."""
+    from pde_policylearning_torch.control import make_optimal_policy_observer
     env_grid = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu").grid
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(ValueError, match="Not supported policy name"):
         make_policy("optimal-policy-observer", env_grid)
+    assert callable(make_optimal_policy_observer)
 
 
 def test_divergence_guard():

@@ -184,16 +184,20 @@ def test_contractions_per_control_step(setup, name, per_step, monkeypatch):
 
 
 def test_policy_needs_its_model_and_unported_names_say_so():
+    """The observer policies need their model; the two flagship policies
+    are factories, not names, in both packages (`make_policy` refuses
+    them as the JAX one does), and an unknown name is refused."""
     grid = NSControlEnv(**SMALL, dtype=torch.float64, device="cpu").grid
+    jgrid = JEnv(**SMALL, dtype=jnp.float64).grid
     for name in ("fno", "rno", "transformer", "optimal-observer"):
         with pytest.raises(ValueError, match="needs the observer"):
             make_policy(name, grid)
-    for name in ("optimal-policy-observer", "fullfield-optimal-observer"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 4"):
+    for name in ("optimal-policy-observer", "fullfield-optimal-observer",
+                 "pid"):
+        with pytest.raises(ValueError, match="Not supported policy name"):
+            jmake_policy(name, jgrid)
+        with pytest.raises(ValueError, match="Not supported policy name"):
             make_policy(name, grid)
-    with pytest.raises(ValueError, match="Not supported policy name"):
-        make_policy("pid", grid)
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(downsample_rate=2, x_range=3,

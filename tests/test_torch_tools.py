@@ -60,6 +60,64 @@ def test_drag_rows_fno_row_serves_a_trained_checkpoint(tmp_path,
         res["fno"]["tail"] / res["unmanipulated"]["tail"] - 1)
 
 
+def test_drag_rows_flagship_rows_over_matched_windows(tmp_path,
+                                                     monkeypatch):
+    """The two flagship rows (here with small models in the place of the
+    full-width ones): the observer from a checkpoint, the full-field
+    `optimal-observer` through the top plane's statistics of a full-field
+    folder, and a row shorter than the others scored over the same steps
+    of `unmanipulated` and `gt`.  The zeroed `PolicyModel2D` only ever
+    moves a constant residual, which the zero-flux step removes, so
+    `optimal-policy-observer` follows `gt`."""
+    from pde_policylearning_torch.data import generate_channel_dataset
+    from pde_policylearning_torch.envs import NSControlEnv
+    from pde_policylearning_torch.training import save_checkpoint
+    small = dict(modes1=(2, 2), modes2=(2, 2), modes3=(12, 12),
+                 layers=(6, 6, 6), fc_dim=4, in_dim=1)
+    monkeypatch.setattr(drag_rows, "FULL_WIDTH", small)
+    ckpt = save_checkpoint(str(tmp_path / "ff.pt"),
+                           drag_rows.fullfield_observer(
+                               None, "cpu", torch.Generator().manual_seed(0)))
+    env = NSControlEnv(8, 33, 8, detect_plane=5, seed=0, device="cpu")
+    data = generate_channel_dataset(str(tmp_path / "ff"), 4, env=env,
+                                    detect_plane=5, save_fields=True)
+    res, series = drag_rows.drag_rows(
+        6, True, "cpu", (8, 33, 8), fullfield=ckpt, fullfield_data=data,
+        flagship_steps=(4, 6), out_dir=str(tmp_path / "out"))
+    assert set(series) == {"unmanipulated", "gt", *drag_rows.FLAGSHIP}
+    opo, ffoo = (res[k] for k in drag_rows.FLAGSHIP)
+    assert opo["steps"] == 4 and ffoo["steps"] == 6 and "matched" not in ffoo
+    m = opo["matched"]
+    assert m["window"] == [2, 4]
+    assert m["unmanipulated"] == pytest.approx(
+        float(series["unmanipulated"][2:4].mean()))
+    assert m["drag_change"] == pytest.approx(
+        opo["tail"] / m["unmanipulated"] - 1)
+    np.testing.assert_allclose(series["optimal-policy-observer"],
+                               series["gt"][:4], rtol=1e-6)
+    assert np.isfinite(series["optimal-observer"]).all()
+    with open(tmp_path / "out" / "drag_rows.json") as f:
+        assert set(json.load(f)) >= set(drag_rows.FLAGSHIP)
+    with pytest.raises(ValueError, match="windows"):
+        drag_rows.drag_rows(3, True, "cpu", (8, 33, 8), fullfield=ckpt,
+                            fullfield_data=data, flagship_steps=(4, 6))
+
+
+def test_fullfield_batch_encodes_its_planes():
+    """The full-field training batch `profile_paths` times: the fields of
+    a short rollout, the top plane and the chosen planes encoded by the
+    top plane's statistics, shaped as `fullfield_losses` takes them."""
+    from pde_policylearning_torch.envs import NSControlEnv
+    env = NSControlEnv(8, 33, 8, detect_plane=5, seed=0, device="cpu")
+    norm, (vp, vf, U, V, W, dpdx, re) = profile_paths.fullfield_batch(
+        env, B=4, planes=(-2, -4))
+    assert vp.shape == (4, 1, 8, 8) and vf.shape == (4, 1, 2, 8, 8)
+    assert U.shape[:2] == V.shape[:2] == W.shape[:2] == (4, 1)
+    assert dpdx.shape == (4, 1) and re.shape == (4,)
+    torch.testing.assert_close(norm.decode(vf[:, :, 1]), V[..., -4, :])
+    assert float(vp.mean(0).abs().max()) < 1e-5
+
+
 def test_drag_rows_staged_matches_kernel_d_plain():
     before = rk.FULLSTEP
     staged, s_series = drag_rows.drag_rows(5, False, "cpu", (8, 33, 8))

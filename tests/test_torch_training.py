@@ -443,5 +443,14 @@ def test_entry_generates_a_missing_dataset_and_refuses_the_full_field(
     np.random.default_rng(0).shuffle(ref)
     np.testing.assert_array_equal(train_idx, ref[:6])
     np.testing.assert_array_equal(test_idx, ref[6:9])
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        rpo.main(DotDict(model_name="PINObserverFullField"), device="cpu")
+    # a full-field config takes the full-field branch, which runs
+    monkeypatch.undo()
+    args = DotDict(load_yaml(os.path.join(ROOT, "configs",
+                                          "fullfield_pi.yaml")))
+    args.update(DATA_FOLDER=str(tmp_path / "ff"), x_range=8, y_range=8,
+                Ny=33, generate_steps=6, ntrain=4, ntest=2, epochs=1,
+                batch_size=2, layers=[6, 6], modes1=[2], modes2=[2],
+                modes3=[12], fc_dim=4, set_epoch=-1,
+                out_dir=str(tmp_path / "out"))
+    _, hist = rpo.main(args, device="cpu")
+    assert np.isfinite(hist["total"]).all() and hist["test_rel_l2"] > 0
