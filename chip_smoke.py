@@ -112,12 +112,31 @@ result):
      itself run eagerly, over one control step from one state and over
      20 closed-loop steps, and against the plain env step over 20 steps;
      every kernel of the path (kernel D, the Poisson solve, the wall
-     pair) launched over the phase.
+     pair) launched over the phase;
+ 10. PINO pretrain and finetune (`train_pino`): eight Kolmogorov-flow
+     trajectories of configs/pino-observer-pretrain-1s.yaml (128x128x65,
+     Re 400) generated on the card; the card's FFT residuals
+     (`fdm_ns_vorticity`, `fdm_burgers`) and one trunk layer's `irfftn`
+     against the CPU's in float64 (cuFFT's C2R on spectra that are not
+     Hermitian against pocketfft's rule); at full width the gradient of a
+     batch of 4 as 4 remat micro-batches against one pass and against no
+     remat, and two `train_ns` iterations each way; ms an iteration, peak
+     memory, busy share and launches an iteration at full width, float32
+     and bf16; one `train_ns` iteration at a reduced size against the CPU
+     in float64; the solver against the CPU; no kernel of the port
+     launched (the convs are 3-D);
+ 11. DDPG on the channel (`main_ddpg --channel`): the on-device loop at
+     the full configuration for 256 warm-up and 512 training steps,
+     exactly one kernel-D launch an env step, the Poisson kernel and the
+     wall pair launched at construction; env steps/s, launches per step,
+     busy share; 20 warm-up and 4 training steps from the same draws,
+     networks and state through kernel D against the plain env step.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -1956,6 +1975,306 @@ def main() -> int:
                                  "path")
     del ff_observer, policy_model, pol, routes
 
+    # 10. PINO pretrain and finetune (train_pino) ---------------------------
+    from pde_policylearning_torch import train_pino as tp
+    from pde_policylearning_torch.data import (KFDataset,
+                                               ns_vorticity_rollout)
+    from pde_policylearning_torch.ops import pde_losses
+    from pde_policylearning_torch.training import pino_train as pt
+    # no kernel of the port is on this path (the PINO convs are 3-D, the
+    # residuals and the solver torch FFTs): none may launch over the phase
+    zero_counts()
+    pcfg = load_yaml(os.path.join(here, "configs",
+                                  "pino-observer-pretrain-1s.yaml"))
+    S, T_kf = int(pcfg.data.pde_res[0]), int(pcfg.data.pde_res[2])
+    n_kf = 8
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kf = KFDataset.generate(n_kf, S, T_kf, re=float(pcfg.data.Re),
+                                save_path=os.path.join(tmp, "kf.npy"),
+                                seed=0, device=dev)
+        gen_s = time.perf_counter() - t0
+    u_kf, a_kf, re_kf = kf.arrays(device=dev)
+    log(f"{elapsed()} PINO: {n_kf} Kolmogorov-flow trajectories "
+        f"{S}x{S}x{T_kf} (Re {pcfg.data.Re:g}) generated in {gen_s:.1f} s; "
+        f"|w| mean {float(u_kf.abs().mean()):.4f}")
+    if not (torch.isfinite(u_kf).all() and tuple(u_kf.shape)
+            == (n_kf, S, S, T_kf)):
+        raise AssertionError("PINO: non-finite or misshapen trajectories")
+    pino = dict(generate_seconds=gen_s)
+
+    # the card's FFT routes against the CPU's in float64 on the same
+    # float32 input: cuFFT's C2R is undefined for a spectrum that is not
+    # Hermitian (the residuals' `1j * k * f_h`, a spectral layer's corners)
+    # and pocketfft's rule is the reference's.  A rule that differed would
+    # part them by O(1); the limits allow float32 rounding, which the NS
+    # residual amplifies (its terms cancel to the truncation error of a
+    # central time difference)
+    w = u_kf[:2]
+    check("PINO: fdm_ns_vorticity, card against CPU float64",
+          rel(pde_losses.fdm_ns_vorticity(w, 1.0 / re_kf[:2]).cpu(),
+              pde_losses.fdm_ns_vorticity(w.double().cpu(),
+                                          1.0 / re_kf[:2].double().cpu())),
+          1e-3)
+    gb = torch.Generator(device=dev).manual_seed(3)
+    ub = torch.randn((4, 16, 128), generator=gb, device=dev)
+    check("PINO: fdm_burgers, card against CPU float64",
+          rel(pde_losses.fdm_burgers(ub, 0.01).cpu(),
+              pde_losses.fdm_burgers(ub.double().cpu(), 0.01)), 1e-4)
+    gw = torch.Generator(device=dev).manual_seed(4)
+    model_kf = tp.build_model(pcfg.model, dev, gw)
+    layer = model_kf.trunk.sp0
+    x_in = torch.randn((1, S, S, T_kf, 4), generator=gw, device=dev)
+    x_ft = fourier.rfftn(x_in, axes=(1, 2, 3))
+    w4 = [{"mm2": getattr(layer, f"w{i}").mm2[..., :4, :4]}
+          for i in range(4)]
+    out_ft = sc.spectral_corners_plain(x_ft, w4, layer.modes)
+    check("PINO: one trunk layer's irfftn (8^3 x 4 corners, 4 channels), "
+          "card against CPU float64",
+          rel(fourier.irfftn(out_ft, (S, S, T_kf), (1, 2, 3)).cpu(),
+              fourier.irfftn(out_ft.cpu().to(torch.complex128),
+                             (S, S, T_kf), (1, 2, 3))), 1e-5)
+    forcing = pde_losses.get_forcing(S, device=dev)
+
+    def batch_grads(model, accum):
+        """The gradient of one batch of 4 as train_ns takes it with
+        `accum` micro-batches."""
+        model.zero_grad(set_to_none=True)
+        for ib in torch.arange(4, device=dev).reshape(accum, -1):
+            (pt.ns_losses(model, a_kf[ib], u_kf[ib], re_kf[ib], forcing)[0]
+             / accum).backward()
+        return [p.grad.detach().clone() for p in model.parameters()]
+
+    def flat(gs):
+        return torch.cat([g.reshape(-1) for g in gs])
+
+    g_acc = batch_grads(model_kf, 4)
+    torch.cuda.reset_peak_memory_stats()
+    model_kf.trunk.remat = False
+    g_full = batch_grads(model_kf, 1)
+    peak_full = torch.cuda.max_memory_allocated() / 2 ** 30
+    g_noremat = batch_grads(model_kf, 4)
+    model_kf.trunk.remat = True
+    check("PINO: gradient of a batch of 4, 4 micro-batches against one "
+          "pass", rel(flat(g_acc), flat(g_full)), 1e-5)
+    # per parameter the two float32 gradients part where a tensor's
+    # gradient is a sum that cancels (f32 rounding over ~4M points), so
+    # each is held against float64: on its worst parameter accumulation
+    # is to be no further from float64 than one pass is, within 2x
+    m64 = copy.deepcopy(model_kf).double()
+    a_kf, u_kf, re_kf = (x.double() for x in (a_kf, u_kf, re_kf))
+    forcing = forcing.double()
+    g64 = batch_grads(m64, 4)
+    a_kf, u_kf, re_kf = (x.float() for x in (a_kf, u_kf, re_kf))
+    forcing = forcing.float()
+    del m64
+    worst = [max(rel(a, b) for a, b in zip(g, g64))
+             for g in (g_acc, g_full)]
+    log(f"  PINO: worst parameter's gradient from float64: 4 micro-batches "
+        f"{worst[0]:.3e}, one pass {worst[1]:.3e}; from each other "
+        f"{max(rel(a, b) for a, b in zip(g_acc, g_full)):.3e}")
+    check("PINO: the same, worst parameter: distance from float64, "
+          "4 micro-batches over one pass", worst[0] / worst[1], 2.0)
+    del g64
+    check("PINO: gradient, remat against no remat",
+          rel(flat(g_acc), flat(g_noremat)), 1e-6)
+    # two train_ns iterations from the same weights and batches: the loss
+    # parts of the first, and of the second, which reads the first update.
+    # Adam's first step moves an entry by about lr whatever its gradient's
+    # size, so an entry whose gradient is near zero may step either way
+    # with the last bit; such an entry moves the loss by next to nothing,
+    # which makes the losses after the step the measure of the update
+    hists = []
+    for accum in (4, 1):
+        m = tp.build_model(pcfg.model, dev,
+                           torch.Generator(device=dev).manual_seed(4))
+        h = pt.train_ns(m, (u_kf[:4], a_kf[:4], re_kf[:4]), iterations=2,
+                        batch_size=4, accum_steps=accum, verbose=False,
+                        generator=torch.Generator(device=dev).manual_seed(5),
+                        learning_rate=1e-3, milestones=[25, 50, 75, 100])
+        hists.append(torch.tensor([h[k] for k in ("total", "data", "ic",
+                                                  "f")]))
+    check("PINO: train_ns, accum_steps 4 against one pass: the loss parts "
+          "of the first iteration", rel(hists[0][:, 0], hists[1][:, 0]),
+          1e-6)
+    check("PINO: the same, after one update", rel(hists[0][:, 1],
+                                                  hists[1][:, 1]), 1e-5)
+    del g_acc, g_full, g_noremat, m
+
+    # full width as configured (batch 4 as 4 remat micro-batches), and the
+    # bf16 config; ms per iteration, peak memory, busy share, launches
+    tcfg = pcfg.train
+    for tag, dtype in (("f32", None), ("bf16", "bf16")):
+        m = tp.build_model(pcfg.model, dev,
+                           torch.Generator(device=dev).manual_seed(4))
+        opt, sched = pt.make_optimizer(m, float(tcfg.base_lr),
+                                       tcfg.milestones,
+                                       float(tcfg.scheduler_gamma))
+        data = (u_kf, a_kf, re_kf)
+
+        def iters(k, m=m, opt=opt, sched=sched, dtype=dtype):
+            return pt.train_ns(
+                m, data, iterations=k, batch_size=int(tcfg.batchsize),
+                accum_steps=int(tcfg.accum_steps), compute_dtype=dtype,
+                optimizer=opt, scheduler=sched, log_interval=k,
+                verbose=False)
+        iters(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_it = 10
+        t0 = time.perf_counter()
+        hist = iters(n_it)
+        torch.cuda.synchronize()
+        ms_it = 1e3 * (time.perf_counter() - t0) / n_it
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ev = device_events(lambda: iters(3))
+        dev_ms = sum(t for _, t in ev.values()) / 1e3 / 3
+        launches_it = sum(n for n, _ in ev.values()) / 3
+        if not np.isfinite(hist["total"]).all():
+            FAILED.append(f"PINO {tag}: non-finite loss {hist['total']}")
+        log(f"  full width {tag}: {ms_it:.2f} ms an iteration (batch 4 as "
+            f"4 remat micro-batches), device {dev_ms:.2f} ms, busy "
+            f"{dev_ms / ms_it:.1%}, {launches_it:.0f} launches an iteration, "
+            f"peak {peak:.2f} GiB (a batch of 4 in one pass, no remat: "
+            f"{peak_full:.2f} GiB); loss {hist['total'][0]:.4f} -> "
+            f"{hist['total'][-1]:.4f}  ({smi})")
+        pino[tag] = dict(ms_per_iter=ms_it, device_ms=dev_ms,
+                         busy=dev_ms / ms_it, launches_per_iter=launches_it,
+                         peak_gib=peak, loss=hist["total"])
+        del m, opt, sched
+    pino["peak_gib_batch4_one_pass"] = peak_full
+
+    # a reduced size: one iteration on the card against the CPU in float64
+    # from the same weights and the same batch (the whole set, so that the
+    # two generators' orders do not matter)
+    small = dict(layers=[8, 8, 8], modes1=[4, 4], modes2=[4, 4],
+                 modes3=[3, 3], fc_dim=16)
+    kf_small = KFDataset(u=kf.u[:2, ::4, ::4, ::8], a=kf.a[:2, ::4, ::4, ::8],
+                         re=kf.re[:2])
+    m_c = tp.build_model(small, dev,
+                         torch.Generator(device=dev).manual_seed(6))
+    m_p = tp.build_model(small, "cpu").double()
+    m_p.load_state_dict({k: v.double().cpu()
+                         for k, v in m_c.state_dict().items()})
+    sets = {m_c: kf_small.arrays(torch.float32, dev),
+            m_p: kf_small.arrays(torch.float64, "cpu")}
+    parts = ("total", "data", "ic", "f")
+    grads = []
+    for m, (u_s, a_s, re_s) in sets.items():
+        f_s = pde_losses.get_forcing(u_s.shape[1], device=u_s.device,
+                                     dtype=u_s.dtype)
+        m.zero_grad(set_to_none=True)
+        pt.ns_losses(m, a_s, u_s, re_s, f_s)[0].backward()
+        grads.append(flat([p.grad.cpu() for p in m.parameters()]))
+    check("PINO reduced size: the gradient of one batch, card against CPU "
+          "float64", rel(*grads), 1e-4)
+    h_c, h_p = (pt.train_ns(m, d, iterations=2, batch_size=2, verbose=False)
+                for m, d in sets.items())
+    for it, tol in ((0, 1e-5), (1, 1e-5)):
+        check(f"PINO reduced size: train_ns iteration {it + 1}'s loss "
+              "parts, card against CPU float64", rel(
+                  torch.tensor([h_c[k][it] for k in parts]),
+                  torch.tensor([h_p[k][it] for k in parts])), tol)
+    # the solver itself: 64 steps at 64x64, card against CPU float64
+    w0 = u_kf[:2, ::2, ::2, 0]
+    fk = pde_losses.get_forcing(64, device=dev)[0, :, :, 0]
+    check("PINO: ns_vorticity_rollout, 64 steps at 64x64, card against CPU"
+          " float64", rel(ns_vorticity_rollout(w0, fk, 1 / 400.0, 1e-3, 64,
+                                               32).cpu(),
+                          ns_vorticity_rollout(w0.double().cpu(),
+                                               fk.double().cpu(), 1 / 400.0,
+                                               1e-3, 64, 32)), 1e-5)
+    got = (*corner_counts(), *(fn.launches for fn in every.values()))
+    if any(got):
+        FAILED.append(f"PINO: a kernel of the port launched on its path: "
+                      f"{got}")
+    log("  pino " + json.dumps(pino))
+    del model_kf, kf, u_kf, a_kf, re_kf, data
+    torch.cuda.empty_cache()
+
+    # 11. DDPG on the channel DNS (main_ddpg --channel) ---------------------
+    from pde_policylearning_torch.control.ddpg import (
+        draw_channel_noise, train_ddpg_channel_on_device)
+    warm_n, train_n = 256, 512
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env = fresh_env()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, met = train_ddpg_channel_on_device(n_steps=train_n, warmup=warm_n,
+                                          env=env, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ddpg_launches = {k: fn.launches for k, fn in kernels.items()}
+    n_env = warm_n + train_n
+    for k in ("warmup_shear", "shear", "critic_loss", "actor_loss"):
+        if not np.isfinite(met[k]).all():
+            FAILED.append(f"DDPG: non-finite {k}")
+    if ddpg_launches["rk3_fullstep"] != n_env:
+        FAILED.append(f"DDPG: kernel D launched "
+                      f"{ddpg_launches['rk3_fullstep']} times for {n_env} "
+                      "env steps")
+    for k, v in ddpg_launches.items():
+        if v <= 0:
+            FAILED.append(f"DDPG: kernel {k} not launched on the path")
+    per_step, counts = launches_per_step(
+        lambda k: train_ddpg_channel_on_device(
+            n_steps=k, warmup=16, env=env, verbose=False))
+    ev = device_events(lambda: train_ddpg_channel_on_device(
+        n_steps=64, warmup=16, env=env, verbose=False))
+    t1 = time.perf_counter()
+    train_ddpg_channel_on_device(n_steps=64, warmup=16, env=env,
+                                 verbose=False)
+    torch.cuda.synchronize()
+    busy = sum(t for _, t in ev.values()) / 1e6 / (time.perf_counter() - t1)
+    log(f"{elapsed()} DDPG: env built in {build_s:.1f} s; {warm_n} warm-up "
+        f"+ {train_n} training steps at the --channel defaults in "
+        f"{dt:.1f} s, {n_env / dt:.2f} env steps/s ({smi}); device "
+        f"launches per training step {per_step} (runs of 20 and 40: "
+        f"{counts}), busy {busy:.1%} over 80 steps; kernel launches "
+        f"{ddpg_launches}; shear warm-up {met['warmup_shear'].mean():.6e}, "
+        f"training {met['shear'].mean():.6e}")
+    # kernel D against the plain env step along the path: the same draws,
+    # networks and state, 20 warm-up steps and 4 training steps
+    gd = torch.Generator(device=dev).manual_seed(11)
+    draws = draw_channel_noise(20, 4, Nx * Nz, 64, gd)
+    from pde_policylearning_torch.control.ddpg import Actor, Critic
+    nets = (Actor(Nx * Nz, Nx * Nz, 0.01, generator=gd, device=dev),
+            Critic(Nx * Nz, Nx * Nz, generator=gd, device=dev))
+    pair = []
+    for plain in (False, True):
+        e = fresh_env()
+        if plain:
+            rk.env_step_full_kb_kernel = rk.env_step_full_kb_plain
+        try:
+            _, m_ = train_ddpg_channel_on_device(
+                n_steps=4, warmup=20, env=e, draws=draws, verbose=False,
+                actor=copy.deepcopy(nets[0]), critic=copy.deepcopy(nets[1]))
+        finally:
+            rk.env_step_full_kb_kernel = kernel_d
+        pair.append((m_, e))
+    (m_k, e_k), (m_p, e_p) = pair
+    # the 20 warm-up steps take no update: the env alone (phase 3's
+    # 50-step limits of kernel D against plain); the updates that follow
+    # amplify float32 rounding through Adam's first steps
+    check("DDPG: 20 warm-up steps, kernel D against the plain env step: "
+          "shear", rel(torch.as_tensor(m_k["warmup_shear"]),
+                       torch.as_tensor(m_p["warmup_shear"])), 1e-5)
+    check("DDPG: 4 training steps after them: shear", rel(
+        torch.as_tensor(m_k["shear"]), torch.as_tensor(m_p["shear"])), 1e-4)
+    check("DDPG: the state after them: U", rel(e_k.state.U, e_p.state.U),
+          1e-5)
+    check("DDPG: the state after them: p2", rel(
+        torch.as_tensor(m_k["p2"]), torch.as_tensor(m_p["p2"])), 5e-4)
+    ddpg = dict(env_steps_per_s=n_env / dt, seconds=dt,
+                launches_per_step=per_step, busy=busy,
+                kernel_launches=ddpg_launches,
+                warmup_shear=float(met["warmup_shear"].mean()),
+                shear=float(met["shear"].mean()))
+    log("  ddpg " + json.dumps(ddpg))
+
     log(f"{elapsed()} profiler: {SHORT_READINGS[1]} of {SHORT_READINGS[0]} "
         "readings "
         "short of the most complete reading of their call")
@@ -1971,6 +2290,8 @@ def main() -> int:
         loop_runs["transformer"]
     for k, v in flagship_launches.items():
         report[k]["launches_flagship"] = v
+    for k, v in ddpg_launches.items():
+        report[k]["launches_ddpg"] = v
     report["corner_contract"]["launches_training"] = {
         k: {n: v[n] for n in ("forward", "adjoint", "strided",
                                "per_training_step", "steps")}

@@ -13,13 +13,15 @@ first 100 planes of --data, action_scale 0.3, action_clip 0.01.  With
 training, and `optimal-policy-observer` (a zeroed `PolicyModel2D` adapted
 online, 9250 steps) and the full-field `optimal-observer` (the statistics
 of the top V plane of --fullfield-data's metadata.npy, 31000 steps), the
-step counts of the JAX record.  A row shorter than --steps is also scored
-over matched windows: its tail mean against `unmanipulated`'s and `gt`'s
-means over the same steps.
+step counts of the JAX record.  With --ddpg CHECKPOINT a `ddpg` row
+follows (scripts/drag_study.py:158-169): the actor that `main_ddpg
+--channel` trained and saved, deterministic, max action 0.01.  A row
+shorter than --steps is also scored over matched windows: its tail mean
+against `unmanipulated`'s and `gt`'s means over the same steps.
 
     python -m pde_policylearning_torch.tools.drag_rows [--steps 50000] \\
         [--fullstep] [--fno CKPT --data DIR] \\
-        [--fullfield CKPT --fullfield-data DIR] [--out DIR]
+        [--fullfield CKPT --fullfield-data DIR] [--ddpg CKPT] [--out DIR]
 
 Prints one JSON object: per row the tail mean, first and last shear,
 steps/s and the launch counts of kernel A and kernel D; each row's drag
@@ -39,7 +41,8 @@ import numpy as np
 
 import torch
 
-from ..control import (make_fullfield_optimal_observer,
+from ..control import (Actor, make_ddpg_policy,
+                       make_fullfield_optimal_observer,
                        make_optimal_policy_observer, make_policy,
                        run_closed_loop)
 from ..data import PDEDataset
@@ -113,28 +116,39 @@ def flagship_policy(name: str, env, observer, bound_v_norm=None,
         detect_plane=25, **kw)
 
 
+def ddpg_policy(env, checkpoint: str, device):
+    """The trained on-device DDPG actor as its row serves it."""
+    Nx, Nz = env.grid.Nx, env.grid.Nz
+    actor = Actor(Nx * Nz, Nx * Nz, max_action=0.01, device=device)
+    load_checkpoint(checkpoint, actor)
+    return make_ddpg_policy(actor, Nx, Nz)
+
+
 def drag_rows(n_steps: int, fullstep: bool = False, device="cuda",
               grid=(32, 130, 32), fno: Optional[str] = None,
               data: Optional[str] = None, fullfield: Optional[str] = None,
               fullfield_data: Optional[str] = None,
-              flagship_steps=(9250, 31000), out_dir: Optional[str] = None):
+              flagship_steps=(9250, 31000), out_dir: Optional[str] = None,
+              ddpg: Optional[str] = None):
     """Run the rows; returns (summary dict, {row: shear series})."""
     saved, rk.FULLSTEP = rk.FULLSTEP, fullstep
     res, series = {"card": card_name(), "steps": n_steps,
                    "fullstep": fullstep}, {}
-    steps = dict.fromkeys(("unmanipulated", "gt", "fno"), n_steps)
+    steps = dict.fromkeys(("unmanipulated", "gt", "fno", "ddpg"), n_steps)
     steps.update(zip(FLAGSHIP, flagship_steps))
     if fullfield and max(flagship_steps) > n_steps:
         raise ValueError("the flagship rows are scored over windows of the "
                          f"unmanipulated row's {n_steps} steps")
     rows = ("unmanipulated", "gt") + (("fno",) if fno else ()) \
-        + (FLAGSHIP if fullfield else ())
+        + (FLAGSHIP if fullfield else ()) + (("ddpg",) if ddpg else ())
     try:
         for name in rows:
             env = NSControlEnv(*grid, detect_plane=25, test_plane=124,
                                seed=0, device=device)
             if name == "fno":
                 policy = fno_policy(env, fno, data, device)
+            elif name == "ddpg":
+                policy = ddpg_policy(env, ddpg, device)
             elif name in FLAGSHIP:
                 policy = flagship_policy(
                     name, env, fullfield_observer(fullfield, device),
@@ -213,12 +227,15 @@ def main(argv=None):
                     default="data/planes_channel180_fullfield",
                     help="the full-field dataset whose metadata.npy sets "
                          "the full-field optimal-observer's statistics")
+    ap.add_argument("--ddpg", default=None, metavar="CKPT",
+                    help="add the `ddpg` row with this trained actor "
+                         "(main_ddpg --channel)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     res, _ = drag_rows(args.steps, args.fullstep, args.device,
                        tuple(args.grid), args.fno, args.data,
                        args.fullfield, args.fullfield_data,
-                       out_dir=args.out)
+                       out_dir=args.out, ddpg=args.ddpg)
     print(json.dumps(res))
     return res
 

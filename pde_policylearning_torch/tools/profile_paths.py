@@ -41,7 +41,12 @@ seeded): the `optimal-policy-observer` loop (a zeroed full-width
 50 steps each through kernel D, and one full-field training step (B 32,
 the physics-informed loss at weight 1, Adam) on the fields of a 32-step
 `gt` rollout, 10 steps a run.  `--flagship-only` runs the last three
-alone.
+alone.  `--training-only` runs the two training entries of the port
+alone: one `train_ns` iteration of configs/pino-observer-pretrain-1s.yaml
+at full width (batch 4 as 4 remat micro-batches, 128x128x65, on four
+generated trajectories), 3 iterations a run, and the on-device DDPG loop
+at the `main_ddpg --channel` defaults, 16 warm-up and 112 training steps a
+run (env steps per step counted as one).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -49,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 import torch
@@ -299,8 +305,54 @@ def flagship_paths(env, closed_steps: int = 50, train_steps: int = 10):
     return res
 
 
+def training_paths(env, pino_iters: int = 3, ddpg_steps=(16, 112)):
+    """A full-width PINO iteration and a DDPG step (see the module
+    docstring)."""
+    from ..control.ddpg import train_ddpg_channel_on_device
+    from ..data import KFDataset
+    from ..train_pino import build_model
+    from ..training.pino_train import make_optimizer, train_ns
+    from ..utils import load_yaml
+    dev = torch.device("cuda")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_yaml(os.path.join(here, "..", "..", "configs",
+                                 "pino-observer-pretrain-1s.yaml"))
+    S, T = int(cfg.data.pde_res[0]), int(cfg.data.pde_res[2])
+    with tempfile.TemporaryDirectory() as tmp:
+        data = KFDataset.generate(4, S, T, re=float(cfg.data.Re),
+                                  save_path=os.path.join(tmp, "kf.npy"),
+                                  device=dev).arrays(device=dev)
+    model = build_model(cfg.model, dev,
+                        torch.Generator(device=dev).manual_seed(0))
+    opt, sched = make_optimizer(model, float(cfg.train.base_lr),
+                                cfg.train.milestones,
+                                float(cfg.train.scheduler_gamma))
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    res["train_iter_pino_full_width"] = measure(
+        lambda: train_ns(model, data, iterations=pino_iters, batch_size=4,
+                         accum_steps=int(cfg.train.accum_steps),
+                         optimizer=opt, scheduler=sched,
+                         log_interval=pino_iters, verbose=False),
+        4 * pino_iters, pino_iters)
+    res["train_iter_pino_full_width"]["peak_gib"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    print("train_iter_pino_full_width",
+          json.dumps(res["train_iter_pino_full_width"]), flush=True)
+    del model, opt, sched, data
+    warm, n = ddpg_steps
+    res["ddpg_step_channel"] = measure(
+        lambda: train_ddpg_channel_on_device(n_steps=n, warmup=warm,
+                                             env=env, verbose=False),
+        warm + n, warm + n)
+    print("ddpg_step_channel", json.dumps(res["ddpg_step_channel"]),
+          flush=True)
+    return res
+
+
 def profile_paths(B: int = 8, batched_steps: int = 100,
-                  closed_steps: int = 200, flagship_only: bool = False):
+                  closed_steps: int = 200, flagship_only: bool = False,
+                  training_only: bool = False):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_paths needs a CUDA card")
     dev = torch.device("cuda")
@@ -319,10 +371,11 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
             verbose=False), closed_steps, closed_steps)}
     res = {"card": card_name()}
     saved = rk.FULLSTEP
-    if flagship_only:
+    if flagship_only or training_only:
         rk.FULLSTEP = True
         try:
-            res.update(flagship_paths(env))
+            res.update((flagship_paths if flagship_only
+                        else training_paths)(env))
         finally:
             rk.FULLSTEP = saved
         return res
@@ -353,6 +406,7 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
               json.dumps(res["B1_closed_fno_kernelD"]), flush=True)
         res.update(observer_paths(env))
         res.update(flagship_paths(env))
+        res.update(training_paths(env))
     finally:
         rk.FULLSTEP = saved
     return res
@@ -361,9 +415,11 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--flagship-only", action="store_true")
+    ap.add_argument("--training-only", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    res = profile_paths(flagship_only=args.flagship_only)
+    res = profile_paths(flagship_only=args.flagship_only,
+                        training_only=args.training_only)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_paths.json"), "w") as f:

@@ -116,3 +116,86 @@ def load_jax_params(module: nn.Module, params: dict,
         raise KeyError("load_jax_params: the tree fills no value for "
                        f"{missing}")
     return module
+
+
+def _flax_path(owners: dict, name: str) -> tuple:
+    """The flax tree path of the port's parameter `name` (the inverse of
+    `_carry`'s naming): a Dense/Conv weight is the `kernel`, a norm's
+    weight its `scale`.  Factor lists are not carried (the PINO models'
+    weights are dense)."""
+    prefix, _, leaf = name.rpartition(".")
+    owner = owners.get(prefix)
+    if leaf == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d,
+                                               nn.ConvTranspose2d)):
+        leaf = "kernel"
+    elif leaf == "weight" and isinstance(owner, _NORMS):
+        leaf = "scale"
+    return (*prefix.split("."), leaf) if prefix else (leaf,)
+
+
+def jax_leaf_order(module: nn.Module) -> list:
+    """The port's parameter names in the order of `jax.tree.leaves` of the
+    flax parameter tree (dict keys sorted at each level): the order in
+    which the JAX package's resume blobs list their leaves."""
+    owners = dict(module.named_modules())
+    names = [n for n, _ in module.named_parameters()]
+    return sorted(names, key=lambda n: _flax_path(owners, n))
+
+
+def _tree(paths_values) -> dict:
+    """Nested dicts from (path, value) pairs."""
+    tree = {}
+    for path, value in paths_values:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return tree
+
+
+def load_jax_resume(module: nn.Module, blob: dict, optimizer=None,
+                    scheduler=None) -> int:
+    """Carry a JAX PINO resume blob (`train_pino.py`'s
+    `{"params", "opt_state", "done"}`, each a list of leaves in
+    `jax.tree.leaves` order) into `module` and, where given, a
+    `torch.optim.Adam` over its parameters and the `MultiStepLR` on it.
+
+    `optax.adam(lr)`'s state lists Adam's count, the first moments (one
+    per parameter leaf, in the parameters' order), the second moments,
+    then the schedule's count where the rate is a schedule (none for a
+    constant rate).  The moments become `exp_avg` / `exp_avg_sq` in the
+    parameters' layout, the count Adam's `step`, and the schedule's count
+    the scheduler's epoch (`pino_train.set_iteration`).  Returns `done`,
+    the iteration to continue from."""
+    owners = dict(module.named_modules())
+    order = jax_leaf_order(module)
+    params = dict(module.named_parameters())
+    n = len(order)
+    leaves = list(blob["params"])
+    if len(leaves) != n:
+        raise ValueError(f"load_jax_resume: the blob has {len(leaves)} "
+                         f"parameter leaves, the module {n}")
+    paths = [_flax_path(owners, name) for name in order]
+    load_jax_params(module, _tree(zip(paths, leaves)))
+    if optimizer is not None:
+        state = list(blob["opt_state"])
+        if len(state) not in (2 * n + 1, 2 * n + 2):
+            raise ValueError(f"load_jax_resume: {len(state)} optimizer "
+                             f"leaves for {n} parameters")
+        count = int(np.asarray(state[0]))
+        for name, path, mu, nu in zip(order, paths, state[1:n + 1],
+                                      state[n + 1:2 * n + 1]):
+            p = params[name]
+            prefix, _, _ = name.rpartition(".")
+            moments = [torch.as_tensor(np.ascontiguousarray(
+                _carry(owners.get(prefix), path[-1], np.asarray(m))[1]))
+                .to(dtype=p.dtype, device=p.device) for m in (mu, nu)]
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+        if scheduler is not None:
+            from ..training.pino_train import set_iteration
+            sched_count = int(np.asarray(state[-1])) \
+                if len(state) == 2 * n + 2 else count
+            set_iteration(optimizer, scheduler, sched_count)
+    return int(blob["done"])

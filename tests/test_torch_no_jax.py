@@ -52,15 +52,18 @@ _IMPORT_TPU = re.compile(
 def test_port_never_imports_the_jax_package():
     """No module of the port (the models, policies, training stack, data,
     native loader and entries of every slice, the flagship slice's PINO
-    models and full-field training among them) nor the smoke script imports
-    pde_policylearning_tpu."""
+    models and full-field training, PINO pretraining and DDPG among them)
+    nor the smoke script imports pde_policylearning_tpu."""
     files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {f.name for f in files}
     assert {"rno.py", "transformer.py", "dispatcher.py", "trainer.py",
             "optimizers.py", "checkpoint.py", "losses.py", "loader.py",
             "config.py", "logging.py", "run_pde_observers.py", "mfn.py",
-            "pino.py", "observer_fullfield.py", "run_control.py"} <= names
+            "pino.py", "observer_fullfield.py", "run_control.py",
+            "pde_losses.py", "synthetic.py", "pino_datasets.py",
+            "pino_train.py", "train_pino.py", "ddpg.py", "gym_env.py",
+            "main_ddpg.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_TPU.search(f.read_text())]
     assert not offenders, f"imports the JAX package: {offenders}"
