@@ -131,6 +131,22 @@ result):
      wall pair launched at construction; env steps/s, launches per step,
      busy share; 20 warm-up and 4 training steps from the same draws,
      networks and state through kernel D against the plain env step.
+ 12. the parallel layer (`pde_policylearning_torch.parallel`) on NCCL at
+     world size 1 in this process (one card takes one rank; the layer's
+     multi-rank logic is held by the gloo tests on the CPU):
+     `data_parallel_rollout` of 8 envs x 500 `gt` steps bit for bit
+     `batched_rollout`, with exactly 500 kernel-D launches (staged: A and B
+     1500, C 500), env-steps/s of both; `Trainer(mesh)` against
+     `Trainer()` for one epoch of FNO2dObserver(12, 12, 32) at batch 20 on
+     400 planes (parameters within 1e-6, ms a step, the gradient
+     all-reduce alone, exactly (84, 80, 160) corner launches); the
+     patched Trainer (levels 1, padding 0.25, 32x32 planes) and the fused
+     corner entry at its patch shape against its plain version (2e-6);
+     `sharded_step` at 32x130x32 against `_rk3_step_unfused` on the card
+     (U 2e-6, V and W 2e-5, kernel D's one-step limits) and against the
+     same step with the plain solve and kernel D's float64 mass flow (the
+     fields 2e-6, dPdx 2e-5), launching no kernel; then
+     `python -m pde_policylearning_torch.parallel.dryrun --devices 1`.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -2275,6 +2291,259 @@ def main() -> int:
                 shear=float(met["shear"].mean()))
     log("  ddpg " + json.dumps(ddpg))
 
+    # 12. the parallel layer on NCCL at world size 1 ------------------------
+    # One card takes one NCCL rank: the layer's multi-rank logic is held by
+    # the gloo tests on the CPU; here its collectives run at world size 1
+    # in this process, and the dry run in ranks of its own.
+    import shutil
+
+    import torch.distributed as dist
+
+    from pde_policylearning_torch import parallel as par
+    from pde_policylearning_torch.models import FNO
+    from pde_policylearning_torch.training import Trainer
+    t_par = time.perf_counter()
+    rdv = tempfile.mkdtemp()
+    par.init_distributed(f"file://{os.path.join(rdv, 'rendezvous')}", 1, 0,
+                         device=dev)
+    try:
+        mesh = par.make_mesh(1)
+        log(f"{elapsed()} parallel layer: backend {mesh.backend}, world "
+            f"{mesh.world_size}, dp {mesh.dp} x mp {mesh.mp}, {mesh.device}")
+        if (mesh.backend, mesh.world_size, mesh.device.type) != \
+                ("nccl", 1, "cuda"):
+            FAILED.append(f"parallel: the mesh is {mesh}, not NCCL at world "
+                          "size 1 on the card")
+        # data_parallel_rollout against batched_rollout, through kernel D
+        # and through the staged kernels: bit for bit, exact launches
+        Bd, Td = 8, 500
+        expect_dp = {True: {"rk3_fullstep": Td},
+                     False: {"rk3_substage": 3 * Td,
+                             "rk3_solve_correct": 3 * Td,
+                             "boundary_batched": Td}}
+        dp_launches, dp_corner, dp_rates = {}, {}, {}
+        for fullstep in (True, False):
+            rk.FULLSTEP = fullstep
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(12)
+            states0 = cf.init_batched_states(grid, Bd, gen)
+
+            def batched():
+                return cf.batched_rollout(grid, states0, Td, detect_plane=dp)
+
+            def data_parallel():
+                return par.data_parallel_rollout(mesh, grid, states0, Td,
+                                                 detect_plane=dp)
+            runs = {}
+            for name, fn in (("batched_rollout", batched),
+                             ("data_parallel_rollout", data_parallel),
+                             ("data_parallel_rollout again", data_parallel),
+                             ("batched_rollout again", batched)):
+                torch.cuda.synchronize()
+                zero_counts()
+                t0 = time.perf_counter()
+                s_, o_ = fn()
+                torch.cuda.synchronize()
+                runs[name] = (Bd * Td / (time.perf_counter() - t0),
+                              (s_.U, s_.V, s_.W, s_.dPdx, *o_),
+                              {k: f.launches for k, f in every.items()},
+                              corner_counts())
+            tag = "kernel D" if fullstep else "staged A+B+C"
+            want = {k: expect_dp[fullstep].get(k, 0) for k in every}
+            for name, (_, _, counts, corners) in runs.items():
+                if counts != want or any(corners):
+                    FAILED.append(f"parallel, {tag}: {name} launched "
+                                  f"{counts} and corner entries {corners}, "
+                                  f"expected {want} and none")
+            ref = runs["batched_rollout"][1]
+            for name in ("data_parallel_rollout",
+                         "data_parallel_rollout again"):
+                if not all(torch.equal(a, b)
+                           for a, b in zip(runs[name][1], ref)):
+                    FAILED.append(f"parallel, {tag}: {name} is not "
+                                  "batched_rollout bit for bit")
+            dp_launches[fullstep] = runs["data_parallel_rollout"][2]
+            dp_corner[fullstep] = runs["data_parallel_rollout"][3]
+            dp_rates[tag] = {name: r[0] for name, r in runs.items()}
+            log(f"  {tag}: {Bd} envs x {Td} gt steps, env-steps/s "
+                + ", ".join(f"{k} {v:.2f}" for k, v in dp_rates[tag].items())
+                + f"; launches {dp_launches[fullstep]}  ({smi})")
+        rk.FULLSTEP = True
+
+        # Trainer(mesh) against Trainer() from the same parameters: the
+        # base_fno budget's observer and batch on 400 planes, one epoch
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+        xs = torch.randn((420, Nx, Nz, 1), generator=gen, device=dev)
+        ys = 0.5 * xs + 0.1 * torch.randn(xs.shape, generator=gen, device=dev)
+        tr_d, te_d = (xs[:400], ys[:400]), (xs[400:], ys[400:])
+        base = FNO2dObserver(12, 12, 32, generator=gen, device=dev)
+        dp_train = {}
+        for name, kw in (("Trainer()", {}), ("Trainer(mesh)", dict(mesh=mesh)),
+                         ("Trainer(mesh) again", dict(mesh=mesh)),
+                         ("Trainer() again", {})):
+            m = copy.deepcopy(base)
+            trainer = Trainer(m, n_epochs=1, batch_size=20, verbose=False,
+                              **kw)
+            # the run's training steps (one forward with the gradient on
+            # each) and the forward entry's launches in them, read by
+            # hooks on the model
+            tally = dict(steps=0, train_forward=0, at=0)
+
+            def before(*_):
+                tally["at"] = corner_counts()[0]
+
+            def after(*_):
+                if torch.is_grad_enabled():
+                    tally["steps"] += 1
+                    tally["train_forward"] += corner_counts()[0] - tally["at"]
+            hooks = (m.register_forward_pre_hook(before),
+                     m.register_forward_hook(after))
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer.train(tr_d, te_d)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for h in hooks:
+                h.remove()
+            dp_train[name] = (1e3 * dt / tally["steps"], m, corner_counts(),
+                              {k: f.launches for k, f in every.items()},
+                              tally)
+        worst = max(rel(a, b) for a, b in zip(
+            dp_train["Trainer(mesh)"][1].parameters(),
+            dp_train["Trainer()"][1].parameters()))
+        check("parallel: Trainer(mesh) at world size 1 against Trainer(), "
+              "one epoch of FNO2dObserver(12, 12, 32) at batch 20: worst "
+              "parameter", worst, 1e-6)
+        want = (20 * 4 + 4, 20 * 4, 20 * 8)
+        for name, (_, _, got, env, tally) in dp_train.items():
+            if got != want or any(env.values()) or tally["steps"] != 20:
+                FAILED.append(f"parallel: {name} corner launches (forward, "
+                              f"adjoint, strided) {got}, expected {want}; "
+                              f"env kernels {env}, expected none; "
+                              f"{tally['steps']} training steps, expected 20")
+        got, _, tally = dp_train["Trainer(mesh)"][2:]
+        dp_per_step = (tally["train_forward"] / tally["steps"],
+                       got[1] / tally["steps"], got[2] / tally["steps"])
+        m = dp_train["Trainer(mesh)"][1]
+        (m(xs[:20]) ** 2).mean().backward()
+        params = list(m.parameters())
+        allreduce_ms = cuda_ms(lambda: par.all_reduce_gradients(mesh, params))
+        dp_training = {k: v[0] for k, v in dp_train.items()}
+        log(f"  Trainer: ms a training step (one evaluation batch an epoch "
+            f"included) {json.dumps(dp_training)}; the gradient all-reduce "
+            f"alone {allreduce_ms:.4f} ms ({sum(p.numel() for p in params)} "
+            f"parameters); corner launches (forward, adjoint, strided) an "
+            f"epoch {dp_train['Trainer(mesh)'][2]}, a training step "
+            f"{dp_per_step} over {tally['steps']} training steps  ({smi})")
+
+        # the patched training step: levels 1, padding 0.25, 32x32 planes
+        # -> 4 patches of 32x32 a plane with the coarse context channel
+        patcher = par.MultigridPatching2D(1, 0.25, mesh)
+        pm = FNO((12, 12), 32, in_channels=2, out_channels=1, generator=gen,
+                 device=dev)
+        zero_counts()
+        _, ph = Trainer(pm, n_epochs=1, batch_size=20, verbose=False,
+                        patcher=patcher, mesh=mesh).train(
+            (xs[:40], ys[:40]), te_d)
+        torch.cuda.synchronize()
+        patched = corner_counts()
+        if patched != (3 * 4, 2 * 4, 2 * 8) or not np.isfinite(
+                ph["train_loss"] + ph["test_loss"]).all():
+            FAILED.append(f"parallel: the patched Trainer launched {patched} "
+                          f"corner entries, losses {ph}")
+        pshape = (80, 32, 17, 32, 32, 12, 12)
+        x_ft, d_ft, ws = spec_inputs(*pshape, False)
+        views = sc._dense_views(ws)
+        out = sc.spectral_corners_kernel(x_ft, *views)
+        dx = sc.spectral_corners_kernel(d_ft, *views, adjoint=True)
+        torch.cuda.synchronize()
+        check("parallel: fused corners at the patch shape (80 patches, 32 x "
+              "17 spectrum, 32 -> 32, 12 x 12): forward",
+              rel(cre(out), cre(sc.spectral_corners_plain(x_ft, ws,
+                                                          pshape[5:]))), 2e-6)
+        check("parallel: fused corners at the patch shape: dx (adjoint)",
+              rel(cre(dx), cre(sc.spectral_corners_plain(
+                  d_ft, [sc._adjoint_weight(v) for v in views],
+                  pshape[5:]))), 2e-6)
+        for nm, a, b in zip(("dx", "dw low", "dw high"),
+                            spec_grads(sc.spectral_corners, x_ft, ws,
+                                       pshape[5:]),
+                            spec_grads(sc.spectral_corners_plain, x_ft, ws,
+                                       pshape[5:])):
+            check(f"parallel: fused corners at the patch shape: {nm} "
+                  "through the Function", rel(cre(a), cre(b)), 2e-6)
+        log(f"  patched Trainer: corner launches (forward, adjoint, strided) "
+            f"{patched} over 2 steps and 1 evaluation batch; losses {ph}")
+
+        # the x-sharded step at the full grid against the unsharded step
+        st = cf.init_state(grid, U=snap["U"], V=snap["V"], W=snap["W"],
+                           dPdx=float(snap["dPdx"]))
+        ops = 0.01 * torch.randn((2, Nx, Nz), generator=gen, device=dev)
+        ops = ops - ops.mean(dim=(1, 2), keepdim=True)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        sh = par.sharded_step(mesh, grid, par.shard_env_state(mesh, st),
+                              ops[0], ops[1])
+        torch.cuda.synchronize()
+        sh_ms = 1e3 * (time.perf_counter() - t0)
+        if any(f.launches for f in every.values()) or any(corner_counts()):
+            FAILED.append("parallel: the x-sharded step launched a kernel "
+                          "of the port")
+        # kernel D's one-step limits against `_rk3_step_unfused` on the
+        # card; dPdx amplifies the bulk velocity's rounding by 2 / dt, so
+        # it takes kernel D's dPdx limit (5e-3), and is held again against
+        # the float64 step on the CPU at that limit
+        ref = cf._rk3_step_unfused(grid, st, ops[0], ops[1])
+        g64 = cf.make_channel_grid(Nx, Ny, Nz, device="cpu",
+                                   dtype=torch.float64)
+        ref64 = cf._rk3_step_unfused(
+            g64, cf.ChannelState(**{k: getattr(st, k).double().cpu()
+                                    for k in ("U", "V", "W", "dPdx",
+                                              "meanU0")}),
+            ops[0].double().cpu(), ops[1].double().cpu())
+        for nm, tol in (("U", 2e-6), ("V", 2e-5), ("W", 2e-5),
+                        ("dPdx", 5e-3)):
+            check(f"parallel: sharded_step at {Nx}x{Ny}x{Nz} against "
+                  f"_rk3_step_unfused on the card: {nm}",
+                  rel(getattr(sh, nm), getattr(ref, nm)), tol)
+        check("parallel: sharded_step's dPdx against the float64 step",
+              rel(sh.dPdx.cpu(), ref64.dPdx), 5e-3)
+        log(f"  sharded_step: {sh_ms:.1f} ms (first call); against "
+            f"_rk3_step_unfused: " + ", ".join(
+                f"{nm} {rel(getattr(sh, nm), getattr(ref, nm)):.3e}"
+                for nm in ("U", "V", "W", "dPdx"))
+            + "; from the float64 step (the unfused float32 step's in "
+            "brackets): " + ", ".join(
+                f"{nm} {rel(getattr(sh, nm).cpu(), getattr(ref64, nm)):.3e} "
+                f"({rel(getattr(ref, nm).cpu(), getattr(ref64, nm)):.3e})"
+                for nm in ("U", "V", "W", "dPdx")))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    # the dry run on its own NCCL rank (the card's count: 1)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pde_policylearning_torch.parallel.dryrun",
+         "--devices", "1"], capture_output=True, text=True, timeout=420,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    dry = None
+    if run.returncode == 0:
+        dry = json.loads(run.stdout.strip().splitlines()[-1])
+    if dry is None or (dry["backend"], dry["world"], dry["device"]) != \
+            ("nccl", 1, "cuda:0"):
+        FAILED.append(f"parallel: dryrun --devices 1 failed (rc "
+                      f"{run.returncode}): {run.stdout[-2000:]} "
+                      f"{run.stderr[-2000:]}")
+    log(f"  dryrun --devices 1: {time.perf_counter() - t0:.1f} s, {dry}")
+    log(f"{elapsed()} parallel layer: {time.perf_counter() - t_par:.1f} s")
+    parallel = dict(rates=dp_rates, training_ms_per_step=dp_training,
+                    allreduce_ms=allreduce_ms, sharded_step_ms=sh_ms,
+                    dryrun=dry)
+    log("  parallel " + json.dumps(parallel))
+
     log(f"{elapsed()} profiler: {SHORT_READINGS[1]} of {SHORT_READINGS[0]} "
         "readings "
         "short of the most complete reading of their call")
@@ -2292,6 +2561,19 @@ def main() -> int:
         report[k]["launches_flagship"] = v
     for k, v in ddpg_launches.items():
         report[k]["launches_ddpg"] = v
+    for k in every:
+        # over the two data-parallel rollouts (kernel D, then staged), and
+        # over the Trainer(mesh) epoch
+        report[k]["launches_data_parallel"] = sum(
+            c[k] for c in dp_launches.values())
+        report[k]["launches_dp_training"] = dp_train["Trainer(mesh)"][3][k]
+    report["corner_contract"]["launches_data_parallel"] = dict(
+        zip(("forward", "adjoint", "strided"),
+            map(sum, zip(*dp_corner.values()))))
+    report["corner_contract"]["launches_dp_training"] = dict(
+        zip(("forward", "adjoint", "strided"), dp_train["Trainer(mesh)"][2]),
+        per_training_step=dp_per_step,
+        steps=dp_train["Trainer(mesh)"][4]["steps"])
     report["corner_contract"]["launches_training"] = {
         k: {n: v[n] for n in ("forward", "adjoint", "strided",
                                "per_training_step", "steps")}

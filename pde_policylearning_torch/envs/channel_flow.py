@@ -394,12 +394,16 @@ def boundary_pressures(grid: ChannelGrid, state: ChannelState):
     return (p1.reshape(grid.Nx, grid.Nz), p2.reshape(grid.Nx, grid.Nz))
 
 
-def _rk3_step_unfused(grid: ChannelGrid, state: ChannelState, opV1, opV2
-                      ) -> ChannelState:
-    """One RK3 step (three substages) + mass-flow correction in the
-    (x, y, z) layout, projecting through `projection_step`
-    (control_env.py:533-580): the JAX `_rk3_step_unfused` term by term.
-    The reference of the staged kernels and the backward of `rk3_step`."""
+def _rk3_substages(grid: ChannelGrid, state: ChannelState, opV1, opV2,
+                   project=None):
+    """The three RK3 substages of `_rk3_step_unfused` (no mass flow): each
+    the RHS, the RK update, the BCs, `project(U, V, W)` (default
+    `projection_step`) and the BCs again.  Returns (U, V, W).  The x-sharded
+    step (`parallel/sharded_env.py`) runs it on slabs with halo planes and
+    its distributed projection."""
+    if project is None:
+        def project(U, V, W):
+            return projection_step(grid, U, V, W)
     dt = grid.dt
     U0, V0, W0 = state.U, state.V, state.W
     # actuation may arrive in another dtype than the state's
@@ -414,13 +418,25 @@ def _rk3_step_unfused(grid: ChannelGrid, state: ChannelState, opV1, opV2
         Vn = V0 + dt * sum(c * f[1] for c, f in zip(coeffs, Fus_new))
         Wn = W0 + dt * sum(c * f[2] for c, f in zip(coeffs, Fus_new))
         Un, Vn, Wn = apply_boundary_condition(Un, Vn, Wn, opV1, opV2)
-        Un, Vn, Wn = projection_step(grid, Un, Vn, Wn)
+        Un, Vn, Wn = project(Un, Vn, Wn)
         Un, Vn, Wn = apply_boundary_condition(Un, Vn, Wn, opV1, opV2)
         return Un, Vn, Wn, Fus_new
 
     U, V, W, fs = substage(U0, V0, W0, [8 / 15], [])
     U, V, W, fs = substage(U, V, W, [1 / 4, 5 / 12], fs[:1])
     U, V, W, fs = substage(U, V, W, [1 / 4, 0.0, 3 / 4], fs[:1] + [fs[0]])
+    return U, V, W
+
+
+def _rk3_step_unfused(grid: ChannelGrid, state: ChannelState, opV1, opV2
+                      ) -> ChannelState:
+    """One RK3 step (three substages) + mass-flow correction in the
+    (x, y, z) layout, projecting through `projection_step`
+    (control_env.py:533-580): the JAX `_rk3_step_unfused` term by term.
+    The reference of the staged kernels and the backward of `rk3_step`."""
+    dt = grid.dt
+    dPdx = state.dPdx
+    U, V, W = _rk3_substages(grid, state, opV1, opV2)
 
     # mass-flow correction (control_env.py:574-579)
     d_new = 2.0 * (state.meanU0 - calculate_mean_u(grid, U))
@@ -615,17 +631,22 @@ def rand_control(generator: torch.Generator, shape, scale: float = 0.01,
 # ---------------------------------------------------------------------------
 
 def _rollout_packed(grid, B, kst, n_steps, detect_plane, policy, generator,
-                    collect_fields, boundary):
+                    collect_fields, boundary, batch_of=None):
     """`n_steps` closed-loop steps of B packed envs in the kernel layout,
     with the policy inside the loop and the per-step outputs written into
     preallocated tensors on the state's device (no host sync).  Each step
     is kernel D (`rk3_cuda.FULLSTEP`) or the staged step followed by
     `boundary(U, V, W, dPdx)`; the dispatchers pick the kernels for a CUDA
-    state and the plain versions for a CPU one.  Returns (kst', (p2 (T,
-    B*C), v_plane (T, B*C), dPdx (T, B)[, U, V, W (T, R, B*C)]))."""
+    state and the plain versions for a CPU one.  `batch_of` = (start, n):
+    these B envs are envs start .. start + B - 1 of a batch of n, and the
+    `rand` draws are made for all n and this block kept (None: (0, B)).
+    Returns (kst', (p2 (T, B*C), v_plane (T, B*C), dPdx (T, B)[, U, V, W
+    (T, R, B*C)]))."""
     from . import rk3_cuda as rk
     dtype, dev = kst.U.dtype, kst.U.device
-    BC = B * grid.Nx * grid.Nz
+    C = grid.Nx * grid.Nz
+    BC = B * C
+    start, n_all = batch_of or (0, B)
     p2s = torch.empty((n_steps, BC), dtype=dtype, device=dev)
     vps = torch.empty((n_steps, BC), dtype=dtype, device=dev)
     dps = torch.empty((n_steps, B), dtype=dtype, device=dev)
@@ -637,8 +658,9 @@ def _rollout_packed(grid, B, kst, n_steps, detect_plane, policy, generator,
             o1, o2 = gt_control(kst, detect_plane)
             op1, op2 = o1[None], o2[None]
         elif policy == "rand":
-            op1, op2 = (rand_control(generator, (1, BC), dtype=dtype,
-                                     device=dev) for _ in range(2))
+            op1, op2 = (rand_control(generator, (1, n_all * C), dtype=dtype,
+                                     device=dev)[:, start * C:start * C + BC]
+                        for _ in range(2))
         else:
             op1 = op2 = zero
         if rk.FULLSTEP:
@@ -701,14 +723,17 @@ def rollout(grid: ChannelGrid, state: ChannelState, n_steps: int,
 def batched_rollout(grid: ChannelGrid, states: ChannelState, n_steps: int,
                     detect_plane: int = 25, policy: str = "gt",
                     generator: Optional[torch.Generator] = None,
-                    collect_fields: bool = False):
+                    collect_fields: bool = False, batch_of=None):
     """Closed-loop rollout of B independent envs (leading batch axis on
     every ChannelState leaf), packed env-major into the kernels' columns,
     (rows, B*C): each step is one kernel D call for the whole batch, or
     with `rk3_cuda.FULLSTEP` off 3 x (kernel A, kernel B), the mass-flow
     kernels and kernel C, for any B.  Random-policy draws come from one
-    generator for all envs (independent across envs and steps).  On a card
-    it passes no gradient: states that need one raise.
+    generator for all envs (independent across envs and steps); with
+    `batch_of` = (start, n) the B envs are envs start .. start + B - 1 of a
+    batch of n, whose draws are made whole and sliced, so that a block of
+    a batch steps as it does in the whole (`parallel.data_parallel_rollout`).
+    On a card it passes no gradient: states that need one raise.
 
     Returns (states', outs): (p2 (B, T, Nx, Nz), v_plane (B, T, Nx, Nz),
     dPdx (B, T) [, U, V, W (B, T, Nx, R, Nz)])."""
@@ -719,7 +744,7 @@ def batched_rollout(grid: ChannelGrid, states: ChannelState, n_steps: int,
         grid, B, rk.batch_states(states), n_steps, detect_plane, policy,
         _generator(generator, states.U.device), collect_fields,
         lambda U, V, W, dPdx: rk.boundary_pressures_kb(grid, B, U, V, W,
-                                                       dPdx))
+                                                       dPdx), batch_of)
     states = rk.unbatch_states(grid, kst, B).replace(meanU0=states.meanU0)
     p2s, vps, dps = outs[:3]
 

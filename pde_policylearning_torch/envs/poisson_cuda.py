@@ -47,9 +47,10 @@ def _kron_mats(Nx: int, Nz: int):
     return T.real, T.imag, Ti.real, Ti.imag
 
 
-def _tridiag_residual(grid, R, P, kk):
-    """R - (DD + kk I) P - the (0,0,0) regularization term, for real-stacked
-    (2, Nx, n, Nzr) spectra."""
+def _tridiag_residual(grid, R, P, kk, mode00=True):
+    """R - (DD + kk I) P - the (0,0,0) regularization term (where the
+    spectra hold the (0,0) mode, `mode00`), for real-stacked (2, Nx, n, k)
+    spectra."""
     d = grid.DD_diag[:, None] + kk
     out = d * P
     out = out + torch.nn.functional.pad(
@@ -57,33 +58,47 @@ def _tridiag_residual(grid, R, P, kk):
     out = out + torch.nn.functional.pad(
         grid.DD_upper[:, None] * P[..., 1:, :], (0, 0, 0, 1))
     r = R - out
-    r[:, 0, 0, 0] -= (0.5 * grid.DD_diag[0]) * P[:, 0, 0, 0]
+    if mode00:
+        r[:, 0, 0, 0] -= (0.5 * grid.DD_diag[0]) * P[:, 0, 0, 0]
     return r
 
 
-def _eig_solve(grid, R, denom):
-    """(DD + kk)^-1 R on real-stacked spectra, with the (0,0) column
-    replaced by the equilibrated regularized solve."""
+def _eig_solve(grid, R, denom, mode00=True):
+    """(DD + kk)^-1 R on real-stacked spectra, with the (0,0) column (the
+    last axis' first, where it holds kz = 0: `mode00`) replaced by the
+    equilibrated regularized solve."""
     P = grid.eig_A @ ((grid.eig_B @ R) / denom)
-    s = grid.s00
-    p00 = s * ((s * R[:, 0, :, 0]) @ grid.Pinv00_eq.T)       # (2, n)
-    P[:, 0, :, 0] = p00
+    if mode00:
+        s = grid.s00
+        p00 = s * ((s * R[:, 0, :, 0]) @ grid.Pinv00_eq.T)   # (2, n)
+        P[:, 0, :, 0] = p00
+    return P
+
+
+def spectral_solve(grid, R, kz0: int = 0):
+    """(DD + kk)^-1 of real-stacked spectra R (2, Nx, n, k) whose last axis
+    holds the z wavenumbers kz0 .. kz0 + k - 1 (all Nz // 2 + 1 of them in
+    the plain solve, a block of them on one rank of the x-sharded solve,
+    `parallel/sharded_env.py`), with `grid.refine_steps` refinement
+    passes."""
+    k = R.shape[-1]
+    kk = (grid.kxx[:, None, None] + grid.kzz[None, None, kz0:kz0 + k])
+    denom = grid.eig_lam[None, :, None] + kk
+    # the Neumann null eigenvalue at kk = 0 would give inf; that column is
+    # overwritten by the (0,0) solve but must stay finite
+    denom = torch.where(denom.abs() < 1e-12, torch.ones_like(denom), denom)
+    mode00 = kz0 == 0
+    P = _eig_solve(grid, R, denom, mode00)
+    for _ in range(grid.refine_steps):
+        P = P + _eig_solve(grid, _tridiag_residual(grid, R, P, kk, mode00),
+                           denom, mode00)
     return P
 
 
 def poisson_solve_plain(grid, rhs):
     """Plain torch solve for rhs (Nx, n, Nz) in any float dtype."""
-    Nzr = grid.Nz // 2 + 1
     Rc = torch.fft.fft(torch.fft.rfft(rhs, dim=-1), dim=-3)   # (Nx, n, Nzr)
-    R = torch.stack([Rc.real, Rc.imag])
-    kk = (grid.kxx[:, None, None] + grid.kzz[None, None, :Nzr])
-    denom = grid.eig_lam[None, :, None] + kk
-    # the Neumann null eigenvalue at kk = 0 would give inf; that column is
-    # overwritten by the (0,0) solve but must stay finite
-    denom = torch.where(denom.abs() < 1e-12, torch.ones_like(denom), denom)
-    P = _eig_solve(grid, R, denom)
-    for _ in range(grid.refine_steps):
-        P = P + _eig_solve(grid, _tridiag_residual(grid, R, P, kk), denom)
+    P = spectral_solve(grid, torch.stack([Rc.real, Rc.imag]))
     Pc = torch.complex(P[0], P[1])
     return torch.fft.irfft(torch.fft.ifft(Pc, dim=-3), n=grid.Nz, dim=-1)
 

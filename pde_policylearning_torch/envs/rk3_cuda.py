@@ -386,14 +386,21 @@ def _mass_flow(grid, U, meanU0, dPdx):
     one float32 ulp of the bulk velocity moves dPdx by several percent.  So
     the row means, the trapezoid and d_new are taken in float64, in one
     fixed term order, here and in the kernel alike."""
-    profile = U[..., 1:-1, :].double().mean(dim=(-3, -1))       # (B, Ny-1)
+    return mass_flow_of_profile(
+        grid, U[..., 1:-1, :].double().mean(dim=(-3, -1)), meanU0, dPdx,
+        U.dtype)
+
+
+def mass_flow_of_profile(grid, profile, meanU0, dPdx, dtype):
+    """`_mass_flow` from the float64 mean profile (..., Ny-1) of the
+    interior rows (the x-sharded step sums it over its ranks first)."""
     z = profile.new_zeros(profile.shape[:-1] + (1,))
     vals = torch.cat([z, profile, z], -1)
     w = cf.trap_weights(grid).double()
     mean_now = ((vals[..., 1:] + vals[..., :-1]) * 0.5 * w).sum(-1) * 0.5
     d_new = 2.0 * (meanU0.double() - mean_now)
-    return ((0.5 * d_new).to(U.dtype),
-            (0.5 * (dPdx.double() + d_new / grid.dt)).to(U.dtype))
+    return ((0.5 * d_new).to(dtype),
+            (0.5 * (dPdx.double() + d_new / grid.dt)).to(dtype))
 
 
 def substage_plain(grid, B, U, V, W, U0, V0, W0, F1, op1, op2, dPdx, c_cur,

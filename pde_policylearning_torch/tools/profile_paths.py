@@ -46,7 +46,12 @@ alone: one `train_ns` iteration of configs/pino-observer-pretrain-1s.yaml
 at full width (batch 4 as 4 remat micro-batches, 128x128x65, on four
 generated trajectories), 3 iterations a run, and the on-device DDPG loop
 at the `main_ddpg --channel` defaults, 16 warm-up and 112 training steps a
-run (env steps per step counted as one).
+run (env steps per step counted as one).  `--parallel-only` runs the
+parallel layer alone on an NCCL mesh of one rank (the card's count):
+`data_parallel_rollout` of the 8 envs beside `batched_rollout` (100 `gt`
+steps through kernel D, in turns), and the FNO2dObserver(12, 12, 32)
+training step at B 20 with and without the gradient all-reduce of
+`Trainer(mesh)` (`parallel.all_reduce_gradients`), in turns.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -188,16 +193,21 @@ def observer_forward(observer, Nx: int, Nz: int, n: int = 50):
                                            for e in ka) / n)
 
 
-def training_steps(model, x, y, n_steps: int):
+def training_steps(model, x, y, n_steps: int, mesh=None):
     """`n_steps` training steps of `model` on one batch (x, y): forward,
     the relative L2 loss, backward (the corner kernel's adjoint and
-    strided entries), Adam with the coupled decay."""
-    opt = adam_l2(model.parameters(), 1e-3, 1e-4)
+    strided entries), with a `mesh` the gradient all-reduce of
+    `Trainer(mesh)`, Adam with the coupled decay."""
+    from ..parallel import all_reduce_gradients
+    params = list(model.parameters())
+    opt = adam_l2(params, 1e-3, 1e-4)
 
     def run():
         for _ in range(n_steps):
             opt.zero_grad(set_to_none=True)
             relative_l2_loss(model(x).reshape(y.shape), y).backward()
+            if mesh is not None:
+                all_reduce_gradients(mesh, params)
             opt.step()
     return run
 
@@ -350,9 +360,54 @@ def training_paths(env, pino_iters: int = 3, ddpg_steps=(16, 112)):
     return res
 
 
+def parallel_paths(grid, states, batched_steps: int = 100,
+                   train_steps: int = 20):
+    """The data-parallel rollout and training step on an NCCL mesh of one
+    rank, each beside its unsharded path, in turns (see the module
+    docstring)."""
+    import torch.distributed as dist
+
+    from .. import parallel as par
+    dev = torch.device("cuda")
+    B = states.U.shape[0]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        par.init_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", 1,
+                             0, device=dev)
+        try:
+            mesh = par.make_mesh(1)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            fno = FNO2dObserver(12, 12, 32, generator=gen)
+            x = torch.randn((20, 32, 32, 1), generator=gen, device=dev)
+            y = torch.randn((20, 32, 32, 1), generator=gen, device=dev)
+            paths = {
+                f"B{B}_batched_kernelD": (lambda: cf.batched_rollout(
+                    grid, states, batched_steps, policy="gt"),
+                    B * batched_steps, batched_steps),
+                f"B{B}_data_parallel_kernelD": (
+                    lambda: par.data_parallel_rollout(
+                        mesh, grid, states, batched_steps, policy="gt"),
+                    B * batched_steps, batched_steps),
+                "train_step_fno_B20": (training_steps(fno, x, y,
+                                                      train_steps),
+                                       20, train_steps),
+                "train_step_fno_B20_mesh": (
+                    training_steps(fno, x, y, train_steps, mesh), 20,
+                    train_steps)}
+            for turn in (0, 1):
+                for name, (fn, n_env, n) in paths.items():
+                    key = f"{name}_{'first' if turn == 0 else 'second'}"
+                    res[key] = measure(fn, n_env, n)
+                    print(key, json.dumps(res[key]), flush=True)
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
 def profile_paths(B: int = 8, batched_steps: int = 100,
                   closed_steps: int = 200, flagship_only: bool = False,
-                  training_only: bool = False):
+                  training_only: bool = False, parallel_only: bool = False):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_paths needs a CUDA card")
     dev = torch.device("cuda")
@@ -371,6 +426,13 @@ def profile_paths(B: int = 8, batched_steps: int = 100,
             verbose=False), closed_steps, closed_steps)}
     res = {"card": card_name()}
     saved = rk.FULLSTEP
+    if parallel_only:
+        rk.FULLSTEP = True
+        try:
+            res.update(parallel_paths(grid, states, batched_steps))
+        finally:
+            rk.FULLSTEP = saved
+        return res
     if flagship_only or training_only:
         rk.FULLSTEP = True
         try:
@@ -416,10 +478,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--flagship-only", action="store_true")
     ap.add_argument("--training-only", action="store_true")
+    ap.add_argument("--parallel-only", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     res = profile_paths(flagship_only=args.flagship_only,
-                        training_only=args.training_only)
+                        training_only=args.training_only,
+                        parallel_only=args.parallel_only)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "profile_paths.json"), "w") as f:

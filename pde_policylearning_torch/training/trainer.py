@@ -12,14 +12,25 @@ losses once per chunk of epochs (`log_interval`, capped by
 `max_chunk_steps` batch steps), as the JAX package does, with no `.item()`
 per step.
 
-Dropout stays off in training, as in the JAX `Trainer` without
-`train_model_kwargs` (the RNO regressor's 0.3 and the transformer's 0.05
-included): the models are called with `deterministic=True`, their
-default.  The JAX `Trainer` applies `{"params": p}` alone, so a module
-with BatchNorm statistics (the UNet's `DoubleConv`) cannot be trained by
-it; this one refuses such a module.  Not ported: `train_model_kwargs`
-(dropout in training), `compute_dtype` (bf16 forward), and `patcher` and
-`mesh`, which raise (ROADMAP.md queue 1 item 7).
+Dropout is off unless `train_model_kwargs` turns it on for the training
+passes (`{"deterministic": False}`), as in the JAX `Trainer`; evaluation
+passes take `model_kwargs` alone.  `compute_dtype` (e.g. torch.bfloat16)
+keeps float32 master weights and runs each batch's forward, backward and
+regularizer on casts of the parameters and inputs
+(`pino_train.cast_parameters`), the loss in the targets' dtype.  The JAX
+`Trainer` applies `{"params": p}` alone, so a module with BatchNorm
+statistics (the UNet's `DoubleConv`) cannot be trained by it; this one
+refuses such a module.
+
+With a `mesh` (`parallel.make_mesh`): the parameters are broadcast from
+rank 0 at the start; every rank draws the same global permutation and
+takes its block of each global batch over 'data'; the gradients are
+all-reduced before each update (summed over 'model' where a `patcher`
+with the mesh splits the patch batch there, else averaged), and the
+epoch losses averaged over 'data' in rank order, so the history and the
+best parameters are the same on every rank.  Every rank evaluates the
+whole test set.  Memory model, unlike the JAX `Trainer`'s (which shards
+the arrays 1/N over 'data'): every rank holds the whole dataset.
 """
 from __future__ import annotations
 
@@ -30,10 +41,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import (DATA_AXIS, all_reduce_gradients, ordered_sum,
+                             replicate, split_batch_size)
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optimizers import adam_l2, step_lr
-
-_PARALLEL = "ROADMAP.md queue 1 item 7 (parallel: patching and meshes)"
+from .pino_train import cast_parameters
 
 
 def relative_l2_loss(pred, target, decoder=None):
@@ -70,12 +82,11 @@ class Trainer:
                  gamma: float = 0.5, loss_fn: Optional[Callable] = None,
                  regularizer: Optional[Callable] = None, decoder=None,
                  log_interval: int = 50, model_kwargs: Optional[dict] = None,
-                 patcher=None, mesh=None, max_chunk_steps: int = 4000,
-                 loss_reduction: str = "mean", verbose: bool = True):
-        if patcher is not None or mesh is not None:
-            raise NotImplementedError(
-                f"Trainer: `patcher` and `mesh` are not ported yet: "
-                f"{_PARALLEL}")
+                 patcher=None, mesh=None,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 max_chunk_steps: int = 4000, loss_reduction: str = "mean",
+                 train_model_kwargs: Optional[dict] = None,
+                 verbose: bool = True):
         if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
                for m in model.modules()):
             raise ValueError(
@@ -84,6 +95,10 @@ class Trainer:
                 "train it either (ROADMAP.md queue 3)")
         if loss_reduction not in ("mean", "sum"):
             raise ValueError("loss_reduction must be 'mean' or 'sum'")
+        if patcher is not None and patcher.mesh is not None \
+                and patcher.mesh is not mesh:
+            raise ValueError("Trainer: the patcher's mesh must be the "
+                             "trainer's")
         self.model = model
         self.n_epochs = n_epochs
         self.batch_size = batch_size
@@ -98,15 +113,32 @@ class Trainer:
         self.regularizer = regularizer
         self.log_interval = log_interval
         self.model_kwargs = model_kwargs or {}
+        self.train_model_kwargs = (
+            {**self.model_kwargs, **train_model_kwargs}
+            if train_model_kwargs else self.model_kwargs)
+        self.patcher = patcher
+        self.mesh = mesh
+        self.compute_dtype = compute_dtype
         self.max_chunk_steps = max_chunk_steps
         self.loss_reduction = loss_reduction
         self.verbose = verbose
 
-    def batch_loss(self, xb, yb):
-        pred = self.model(xb, **self.model_kwargs).to(yb.dtype)
-        loss = self.loss_fn(pred.reshape(yb.shape), yb)
-        if self.regularizer is not None:
-            loss = loss + self.regularizer(self.model)
+    def batch_loss(self, xb, yb, train: bool = False):
+        """The loss of one batch: through the patcher where there is one,
+        on casts to `compute_dtype` where it is set, with the training
+        passes' keywords when `train`."""
+        kw = self.train_model_kwargs if train else self.model_kwargs
+        with cast_parameters(self.model, self.compute_dtype):
+            if self.compute_dtype is not None:
+                xb = xb.to(self.compute_dtype)
+            if self.patcher is not None:
+                xb, _ = self.patcher.patch(xb, yb)
+                pred, yb = self.patcher.unpatch(self.model(xb, **kw), yb)
+            else:
+                pred = self.model(xb, **kw)
+            loss = self.loss_fn(pred.to(yb.dtype).reshape(yb.shape), yb)
+            if self.regularizer is not None:
+                loss = loss + self.regularizer(self.model)
         return loss
 
     def test_loss(self, test_data):
@@ -138,9 +170,16 @@ class Trainer:
         dev = x_train.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        model = self.model
+        model, mesh = self.model, self.mesh
         names, params = zip(*((n, p) for n, p in model.named_parameters()
                               if p.requires_grad))
+        if mesh is not None:
+            # this rank's block of every global batch
+            lbs = split_batch_size(bs, mesh)
+            lo = mesh.data_rank * lbs
+            model_split = (self.patcher is not None
+                           and self.patcher.model_split)
+            replicate(mesh, model)
         opt = adam_l2(params, self.learning_rate, self.weight_decay,
                       self.grad_clip)
         sched = step_lr(opt, self.step_size, self.gamma, steps_per_epoch)
@@ -155,14 +194,21 @@ class Trainer:
             losses = []
             for s in range(steps_per_epoch):
                 idx = perm[s * bs:(s + 1) * bs]
+                if mesh is not None:
+                    idx = idx[lo:lo + lbs]
                 opt.zero_grad(set_to_none=True)
-                loss = self.batch_loss(x_train[idx], y_train[idx]) \
-                    * loss_scale
+                loss = self.batch_loss(x_train[idx], y_train[idx],
+                                       train=True) * loss_scale
                 loss.backward()
+                if mesh is not None:
+                    all_reduce_gradients(mesh, params, model_split)
                 opt.step()
                 sched.step()
                 losses.append(loss.detach() / loss_scale)
-            return torch.stack(losses).mean()
+            loss = torch.stack(losses).mean()
+            if mesh is not None:
+                loss = ordered_sum(mesh, loss, DATA_AXIS) / mesh.dp
+            return loss
 
         history = {"train_loss": [], "test_loss": [], "epoch_time": []}
         done = 0

@@ -63,7 +63,8 @@ def test_port_never_imports_the_jax_package():
             "pino.py", "observer_fullfield.py", "run_control.py",
             "pde_losses.py", "synthetic.py", "pino_datasets.py",
             "pino_train.py", "train_pino.py", "ddpg.py", "gym_env.py",
-            "main_ddpg.py"} <= names
+            "main_ddpg.py", "mesh.py", "patching.py", "sharded_env.py",
+            "launch.py", "dryrun.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_TPU.search(f.read_text())]
     assert not offenders, f"imports the JAX package: {offenders}"

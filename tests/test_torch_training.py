@@ -261,7 +261,11 @@ def test_trainer_matches_jax_trainer(kw):
 def test_trainer_refuses_what_jax_cannot_train():
     """The JAX Trainer applies the parameters alone, so a module with
     BatchNorm statistics (the UNet) cannot be trained by it; the port's
-    refuses it, and `patcher` / `mesh` name their queue item."""
+    refuses it.  `patcher` and `mesh`, which the JAX Trainer takes, are
+    accepted (a mesh of one process without a process group, a patcher
+    with and without it)."""
+    from pde_policylearning_torch.parallel import (MultigridPatching2D,
+                                                   make_mesh)
     from pde_policylearning_tpu.models.observers import UNet as JUNet
     jm = JUNet(modes=2)
     full = jax.eval_shape(lambda x: jm.init(jax.random.PRNGKey(0), x),
@@ -273,9 +277,15 @@ def test_trainer_refuses_what_jax_cannot_train():
     with pytest.raises(ValueError, match="BatchNorm"):
         Trainer(UNet(modes=2, **CPU64), n_epochs=1, batch_size=1)
     model = FNO2dObserver(4, 4, 6, **CPU64)
-    for kw in (dict(patcher=object()), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            Trainer(model, n_epochs=1, batch_size=1, **kw)
+    mesh = make_mesh(device="cpu")
+    for kw in (dict(patcher=MultigridPatching2D(1, 0.25)), dict(mesh=mesh),
+               dict(mesh=mesh, patcher=MultigridPatching2D(1, 0.25, mesh))):
+        trainer = Trainer(model, n_epochs=1, batch_size=1, **kw)
+        assert (trainer.patcher, trainer.mesh) == (kw.get("patcher"),
+                                                   kw.get("mesh"))
+    with pytest.raises(ValueError, match="patcher's mesh"):
+        Trainer(model, n_epochs=1, batch_size=1,
+                patcher=MultigridPatching2D(1, 0.25, mesh))
 
 
 def test_checkpoint_round_trip(tmp_path):
