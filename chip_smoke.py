@@ -147,6 +147,27 @@ result):
      same step with the plain solve and kernel D's float64 mass flow (the
      fields 2e-6, dPdx 2e-5), launching no kernel; then
      `python -m pde_policylearning_torch.parallel.dryrun --devices 1`.
+ 13. (run before phase 12: after an NCCL process group in this process
+     torch.profiler sees no kernel of the card) the rest of the zoo and
+     the 2-D channel: the UNO of neuraloperator's
+     U (5 layers, channels [32, 64, 64, 64, 32], scalings [1, 0.5, 1, 2,
+     1]) at B 20 of 32 x 32, dense through the corner kernel against its
+     plain route (forward and gradients at 1e-5; exactly one forward
+     launch a block by hooks on the blocks, (5, 5, 10) a forward and
+     backward) and Tucker on the plain route (no launch); the fused entry
+     at each block's shape against its plain version, timed beside its
+     bound; the transformer with a GCN and a GAT lift on (2, 2, 32, 32, 1)
+     with the grid's Laplacian as edge, kernel against plain at 1e-5 and
+     3 launches a forward; the 2-D env in float64 on the card against the
+     CPU (the fresh solve and five fix_flow steps at 1e-10 with the
+     iteration counts equal; 80 `gt` and 80 unmanipulated steps of
+     `run_control`, the first 32 at 1e-10, the rest beside the growth of
+     a 1e-15 perturbation on the CPU, and the step where each blows the
+     env up equal; host syncs a step, steps/s, ms a fix_flow step); both `run_cfd_simulation` cases
+     at 200 steps against the CPU; the SHT on 32 x 64 in float32 against
+     float64 on both grids (1e-5) and the SFNO forward (1e-4) and
+     backward; `run_learning_beta_to_k.main` at its defaults, its test
+     rel-L2 falling.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -280,6 +301,364 @@ LAUNCHES_B1_GT_STEP = 86
 # its float32 pressure RHS puts both far from float64 (0.6 .. 3e2), beside
 # which the two solves differ by ~1e-4: 1.000 in every reading.
 WALL_TALL = {"phase 2": (1.0, 1.5), "kernel C": (1.01, 1.01)}
+
+
+# the U of neuraloperator's UNO at the observer's widths (phase 13)
+UNO_KW = dict(in_channels=1, out_channels=1, hidden_channels=32,
+              lifting_channels=256, projection_channels=256, n_layers=5,
+              uno_out_channels=[32, 64, 64, 64, 32],
+              uno_n_modes=[[12, 12], [6, 6], [6, 6], [6, 6], [12, 12]],
+              uno_scalings=[[1, 1], [0.5, 0.5], [1, 1], [2, 2], [1, 1]])
+# the corner entry's call at each dense UNO block at B 20: (B, H, Wh, I,
+# O, m1, m2); I differs from O after the skips, and the middle blocks run
+# on 16 x 16 after the 0.5 scaling
+UNO_CORNER_SHAPES = {"block0": (20, 32, 17, 32, 32, 6, 6),
+                     "block1": (20, 32, 17, 32, 64, 3, 3),
+                     "block2": (20, 16, 9, 64, 64, 3, 3),
+                     "block3": (20, 16, 9, 128, 64, 3, 3),
+                     "block4": (20, 32, 17, 96, 32, 6, 6)}
+
+
+def zoo_phase(dev, smi, h):
+    """Phase 13, the rest of the zoo and the 2-D channel, at the sizes the
+    slice runs at; `h` holds main's helpers (`zero_counts`,
+    `corner_counts`, `bound`, `spec_work`, `spec_inputs`, `cre`).  Returns
+    the corner row's new launch counts and times, and the phase's
+    numbers."""
+    import numpy as np
+    import torch
+
+    from pde_policylearning_torch import run_cfd_simulation as cfd
+    from pde_policylearning_torch import run_control as rc
+    from pde_policylearning_torch import run_learning_beta_to_k as bk
+    from pde_policylearning_torch.envs import channel2d as c2
+    from pde_policylearning_torch.models import SFNO, UNO, SimpleTransformer
+    from pde_policylearning_torch.models.graph import grid_laplacian
+    from pde_policylearning_torch.ops import sht
+    from pde_policylearning_torch.ops import spectral_cuda as sc
+    from pde_policylearning_torch.utils import DotDict
+
+    zero, counts = h["zero_counts"], h["corner_counts"]
+    out = {}
+    t_phase = time.perf_counter()
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def grads(model, x):
+        loss = (model(x) ** 2).mean()
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    # the UNO on the observer's pressure plane, B 20 of 32 x 32 -------------
+    log(f"{elapsed()} zoo: UNO (hidden 32, lifting and projection 256, "
+        "channels [32, 64, 64, 64, 32], modes [12, 6, 6, 6, 12], scalings "
+        "[1, 0.5, 1, 2, 1]) at B 20 of 32 x 32, dense and Tucker")
+    x = torch.randn((20, 32, 32, 1), generator=seeded(13), device=dev)
+    uno = {b: UNO(**UNO_KW, factorization=None, conv_backend=b,
+                  generator=seeded(0), device=dev)
+           for b in ("auto", "plain")}
+    # the forward entry's launches in each block, read by hooks on them
+    per_block, at = [], [0]
+
+    def before(*_):
+        at[0] = counts()[0]
+
+    def after(*_):
+        per_block.append(counts()[0] - at[0])
+    blocks = [getattr(uno["auto"], f"block{i}") for i in range(5)]
+    hooks = [b.register_forward_pre_hook(before) for b in blocks] + \
+        [b.register_forward_hook(after) for b in blocks]
+    with torch.no_grad():
+        zero()
+        y_k = uno["auto"](x)
+        fwd = counts()
+        y_p = uno["plain"](x)
+    for hook in hooks:
+        hook.remove()
+    check("UNO dense forward (20, 32, 32, 1), kernel route against plain "
+          "route", rel(y_k, y_p), 1e-5)
+    zero()
+    loss_k, g_k = grads(uno["auto"], x)
+    train = counts()
+    loss_p, g_p = grads(uno["plain"], x)
+    check("UNO dense forward and backward: loss",
+          abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()), 1e-5)
+    check("UNO dense forward and backward: worst parameter gradient",
+          max(rel(a, b) for a, b in zip(g_k, g_p)), 1e-5)
+    if fwd != (5, 0, 0) or per_block != [1] * 5 or train != (5, 5, 10):
+        FAILED.append(f"UNO dense: corner launches (forward, adjoint, "
+                      f"strided) {fwd} a forward ({per_block} a block), "
+                      f"{train} a forward and backward; expected (5, 0, 0), "
+                      "one a block, (5, 5, 10)")
+    uno_ms = {b: cuda_ms(lambda m=m: grads(m, x), reps=10)
+              for b, m in uno.items()}
+    with torch.no_grad():
+        uno_fwd_ms = {b: cuda_ms(lambda m=m: m(x), reps=10)
+                      for b, m in uno.items()}
+    tucker = UNO(**UNO_KW, generator=seeded(0), device=dev)
+    zero()
+    with torch.no_grad():
+        y_t = tucker(x)
+    loss_t, g_t = grads(tucker, x)
+    tucker_counts = counts()
+    if tucker_counts != (0, 0, 0) or not (
+            torch.isfinite(y_t).all()
+            and all(torch.isfinite(g).all() for g in g_t)):
+        FAILED.append(f"UNO Tucker: corner launches {tucker_counts}, "
+                      "expected none (the plain route), or non-finite values")
+    uno_ms["tucker"] = cuda_ms(lambda: grads(tucker, x), reps=10)
+    log(f"  UNO dense: corner launches {fwd} a forward ({per_block} a "
+        f"block), {train} a forward and backward; ms a forward "
+        f"{uno_fwd_ms}, a forward and backward {uno_ms}; Tucker: "
+        f"{tucker_counts}, loss {loss_t.item():.6e}  ({smi})")
+    per_shape = {}
+    for name, shape in UNO_CORNER_SHAPES.items():
+        x_ft, d_ft, ws = h["spec_inputs"](*shape, False)
+        views = sc._dense_views(ws)
+        modes = shape[5:]
+        check(f"fused corners at UNO {name} {shape}: forward",
+              rel(h["cre"](sc.spectral_corners_kernel(x_ft, *views)),
+                  h["cre"](sc.spectral_corners_plain(x_ft, ws, modes))), 2e-6)
+        check(f"fused corners at UNO {name}: dx (adjoint)",
+              rel(h["cre"](sc.spectral_corners_kernel(d_ft, *views,
+                                                      adjoint=True)),
+                  h["cre"](sc.spectral_corners_plain(
+                      d_ft, [sc._adjoint_weight(v) for v in views], modes))),
+              2e-6)
+        b_ms, b_by = h["bound"](*h["spec_work"](*shape))
+
+        def fk(xf=x_ft, vs=views):
+            return sc.spectral_corners_kernel(xf, *vs)
+        per_shape[name] = dict(
+            shape=shape, ms=cuda_ms(fk),
+            device_us=device_us(fk, ("spectral_corners",))[0],
+            plain_ms=cuda_ms(lambda xf=x_ft, w=ws, m=modes:
+                             sc.spectral_corners_plain(xf, w, m)),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"  corner entry at {name}: {per_shape[name]}")
+    out["uno"] = dict(forward=fwd, per_block=per_block, training=train,
+                      tucker=tucker_counts, ms=uno_ms, forward_ms=uno_fwd_ms,
+                      per_shape=per_shape)
+
+    # the transformer with a GCN / GAT feature lift, N = 2 x 32 x 32 --------
+    edge = grid_laplacian(32, 32, 2, device=dev).expand(2, -1, -1)
+    xg = torch.randn((2, 2, 32, 32, 1), generator=seeded(14), device=dev)
+    graph = {}
+    for kind in ("gcn", "gat"):
+        ms = {b: SimpleTransformer(
+            n_hidden=96, n_head=2, attention_type="fourier", freq_dim=48,
+            fourier_modes=12, feat_extract_type=kind, num_feat_layers=2,
+            conv_backend=b, generator=seeded(1), device=dev)
+            .requires_grad_(False) for b in ("auto", "plain")}
+        zero()
+        o_k = ms["auto"](xg, edge=edge)
+        got = counts()
+        check(f"transformer ({kind}, N 2048, edge (2, 2048, 2048)): kernel "
+              "route against plain route",
+              rel(o_k, ms["plain"](xg, edge=edge)), 1e-5)
+        if got != (3, 0, 0):
+            FAILED.append(f"transformer {kind}: corner launches {got} a "
+                          "forward, expected (3, 0, 0)")
+        graph[kind] = dict(launches=got, ms=cuda_ms(
+            lambda m=ms["auto"]: m(xg, edge=edge), reps=5))
+        log(f"  transformer {kind}: {graph[kind]}  ({smi})")
+    out["graph"] = graph
+
+    # the 2-D channel, float64, on the card against the CPU -----------------
+    log(f"{elapsed()} zoo: the 2-D channel (41 x 41, float64, Re 100) on the "
+        "card against the CPU")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env_k = c2.NSControlEnv2D(Re=100.0, fix_flow=True, device=dev)
+    torch.cuda.synchronize()
+    ctor_s = time.perf_counter() - t0
+    env_c = c2.NSControlEnv2D(Re=100.0, fix_flow=True, device="cpu")
+    n_fresh = [int(e.iterations[0]) for e in (env_k, env_c)]
+    if n_fresh[0] != n_fresh[1]:
+        FAILED.append(f"2-D env construction: iterations {n_fresh}")
+    for nm, a, b in (("u", env_k.u, env_c.u), ("p", env_k.p, env_c.p)):
+        check(f"2-D env construction (a fresh solve): {nm}",
+              float(np.abs(a - b).max() / np.abs(b).max()), 1e-10)
+    fix_ms, fix_syncs, fix_iters = [], [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, info_k = env_k.step(env_k.gt_control())
+        torch.cuda.synchronize()
+        fix_ms.append(1e3 * (time.perf_counter() - t0))
+        fix_syncs.append(env_k.syncs)
+        _, _, _, info_c = env_c.step(env_c.gt_control())
+        its = [[int(n) for n in e.iterations] for e in (env_k, env_c)]
+        fix_iters.append(sum(its[0]))
+        if its[0] != its[1]:
+            FAILED.append(f"2-D env fix_flow step {i}: iterations {its}")
+        check(f"2-D env fix_flow step {i}: u", rel(env_k.state.u.cpu(),
+                                                   env_c.state.u), 1e-10)
+        key = "drag_reduction/3_2_dPdx_required"
+        check(f"2-D env fix_flow step {i}: F",
+              abs(info_k[key] - info_c[key]) / abs(info_c[key]), 1e-10)
+    # one fix_flow step and one plain step under the profiler: device time
+    # and launches (the graphs' kernels), against the unprofiled time
+    env_p = c2.NSControlEnv2D(Re=100.0, device=dev)
+    env_p.step(None)
+    prof = {}
+    for name, e, wall in (("fix_flow step", env_k, fix_ms[-1]),
+                          ("plain step", env_p, None)):
+        if wall is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.step(None)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        ev = device_events(lambda e=e: e.step(e.gt_control() if e.fix_flow
+                                              else None))
+        its = sum(int(n) for n in e.iterations)
+        n_dev = sum(n for n, _ in ev.values())
+        ms_dev = 1e-3 * sum(t for _, t in ev.values())
+        prof[name] = dict(ms=wall, device_ms=ms_dev, busy=ms_dev / wall,
+                          launches=n_dev, iterations=its,
+                          launches_per_iteration=n_dev / its,
+                          device_us_per_iteration=1e3 * ms_dev / its)
+        log(f"  2-D env {name} under the profiler: {prof[name]}")
+    log(f"  construction: a fresh solve of {n_fresh[0]} iterations of 50 "
+        f"sweeps in {ctor_s:.3f} s (the graph's capture included); "
+        f"fix_flow steps: ms {[round(t, 2) for t in fix_ms]}, host syncs "
+        f"{fix_syncs}, iterations {fix_iters}  ({smi})")
+    # 80 steps of each.  At F = 4 without fix_flow the env blows up at its
+    # 86th step under `gt` and its 88th without actuation, in the JAX
+    # package too, and on the way a difference in the last bit grows ~1e13
+    # times by step 72: the card is held to the CPU at 1e-10 over the first
+    # 32 steps, beside what a 1e-15 perturbation of u does on the CPU, and
+    # must raise where the CPU does
+    def per_step(a, b):
+        return np.max([np.abs(a[k] - v) / np.maximum(np.abs(v), 1e-300)
+                       for k, v in b.items() if "divergence" not in k], 0)
+
+    loops = {}
+    marks = [15, 31, 47, 63, 79]
+    for policy in ("gt", "unmanipulated"):
+        args = DotDict(env_name="NSControlEnv2D", policy_name=policy,
+                       control_timestep=80)
+        reads = c2.host_read.count
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rc.run_control(args, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loops[policy] = dict(steps_per_s=80 / dt, ms_per_step=1e3 * dt / 80,
+                             syncs_per_step=(c2.host_read.count - reads) / 80)
+        ref = rc.run_control(args, device="cpu")["series"]
+        dev_err = per_step(res["series"], ref)
+        check(f"run_control_2d {policy}: worst series against the CPU over "
+              "the first 32 steps", float(dev_err[:32].max()), 1e-10)
+        env_a = c2.NSControlEnv2D(Re=100.0, device="cpu")
+        env_b = c2.NSControlEnv2D(Re=100.0, device="cpu")
+        env_b.state = env_b.state._replace(u=env_b.state.u * (
+            1 + 1e-15 * torch.randn((41, 41), dtype=torch.float64,
+                                    generator=torch.Generator()
+                                    .manual_seed(0))))
+        infos = [[], []]
+        for _ in range(80):
+            for e, acc in zip((env_a, env_b), infos):
+                acc.append(e.step(e.gt_control() if policy == "gt"
+                                  else None)[3])
+        grow = per_step(*({k: np.asarray([i[k] for i in acc]) for k in
+                           acc[0]} for acc in infos))
+        blow_up = []
+        for d in (dev, "cpu"):
+            env = c2.NSControlEnv2D(Re=100.0, device=d)
+            for i in range(100):
+                try:
+                    env.step(env.gt_control() if policy == "gt" else None)
+                except RuntimeError:
+                    break
+            blow_up.append(i)
+        if blow_up[0] != blow_up[1]:
+            FAILED.append(f"2-D env, {policy}: blows up at step {blow_up[0]} "
+                          f"on the card, {blow_up[1]} on the CPU")
+        loops[policy].update(
+            blow_up_step=blow_up[0],
+            card_vs_cpu={m + 1: float(dev_err[m]) for m in marks},
+            perturbed_1e15_on_cpu={m + 1: float(grow[m]) for m in marks})
+        log(f"  run_control_2d {policy}: {loops[policy]} ('control "
+            f"exploded!' at step {blow_up} from 0, card and CPU), shear "
+            f"last {res['series']['drag_reduction/1_shear_stress'][-1]:.6e}")
+    cfd_runs = {}
+    for case in ("channel", "cavity"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cfd.main(["--case", case, "--steps", "200", "--device",
+                        str(dev)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ref = cfd.main(["--case", case, "--steps", "200", "--device", "cpu"])
+        u_k, u_c = ((r[0].u if case == "channel" else r[0])
+                    for r in (got, ref))
+        check(f"run_cfd_simulation {case}, 200 steps: u against the CPU",
+              rel(u_k.cpu(), u_c), 1e-10)
+        cfd_runs[case] = dict(seconds=secs)
+    log(f"  run_cfd_simulation on the card: {cfd_runs}")
+    out["env2d"] = dict(fresh_iterations=n_fresh[0], construction_s=ctor_s,
+                        fix_flow_ms=fix_ms, fix_flow_syncs=fix_syncs,
+                        fix_flow_iterations=fix_iters, loops=loops,
+                        profile=prof, cfd=cfd_runs)
+
+    # the SHT and the SFNO --------------------------------------------------
+    log(f"{elapsed()} zoo: the SHT on 32 x 64 and the SFNO of "
+        "neuraloperator's shallow-water example (modes (32, 32), 3 -> 3, "
+        "hidden 32, projection 64, dense, batch 4)")
+    rng = np.random.default_rng(0)
+    sfno_ms = {}
+    for grid_name in ("equiangular", "legendre-gauss"):
+        coef = rng.normal(size=(4, 32, 32, 3)) \
+            + 1j * rng.normal(size=(4, 32, 32, 3))
+        for l in range(32):
+            coef[:, l, l + 1:] = 0
+        coef[:, :, 0] = coef[:, :, 0].real
+        f64 = sht.irsht(torch.tensor(coef), 32, 64, grid_name)
+        back64 = sht.rsht(f64, 32, 32, grid_name)
+        f32 = sht.irsht(torch.tensor(coef, dtype=torch.complex64,
+                                     device=dev), 32, 64, grid_name)
+        back32 = sht.rsht(f32, 32, 32, grid_name)
+        check(f"SHT {grid_name} 32 x 64: irsht in float32 on the card "
+              "against float64 on the CPU", rel(f32.cpu(), f64), 1e-5)
+        check(f"SHT {grid_name}: the round trip in float32 on the card "
+              "against float64 on the CPU",
+              rel(torch.view_as_real(back32).cpu(),
+                  torch.view_as_real(back64)), 1e-5)
+        kw = dict(n_modes=(32, 32), hidden_channels=32, in_channels=3,
+                  out_channels=3, projection_channels=64, grid=grid_name)
+        model = SFNO(**kw, generator=seeded(2), device=dev)
+        cpu = SFNO(**kw, device="cpu", dtype=torch.float64)
+        cpu.load_state_dict({k: v.double().cpu()
+                             for k, v in model.state_dict().items()})
+        xs = f32.detach()
+        loss, g = grads(model, xs)
+        with torch.no_grad():
+            check(f"SFNO {grid_name} forward (4, 32, 64, 3): float32 on the "
+                  "card against float64 on the CPU",
+                  rel(model(xs).cpu(), cpu(xs.double().cpu())), 1e-4)
+        if not (torch.isfinite(loss)
+                and all(torch.isfinite(t).all() for t in g)):
+            FAILED.append(f"SFNO {grid_name}: non-finite loss or gradient")
+        sfno_ms[grid_name] = cuda_ms(lambda m=model: grads(m, xs), reps=10)
+    log(f"  SFNO ms a forward and backward: {sfno_ms}  ({smi})")
+    out["sfno_ms"] = sfno_ms
+
+    # DeepONet: run_learning_beta_to_k at its defaults ----------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = bk.main(["--device", str(dev)])
+    torch.cuda.synchronize()
+    bk_s = time.perf_counter() - t0
+    if not (np.isfinite(np.asarray(hist)).all() and hist[-1][2] < hist[0][2]):
+        FAILED.append(f"run_learning_beta_to_k: the test rel-L2 does not "
+                      f"fall: {hist}")
+    log(f"  run_learning_beta_to_k.main (2000 iterations): {bk_s:.1f} s, "
+        f"test rel-L2 {[r[2] for r in hist]}  ({smi})")
+    out["beta_to_k"] = dict(seconds=bk_s, history=hist)
+    log(f"{elapsed()} zoo: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 T_START = time.perf_counter()
@@ -2291,6 +2670,14 @@ def main() -> int:
                 shear=float(met["shear"].mean()))
     log("  ddpg " + json.dumps(ddpg))
 
+    # 13. the rest of the zoo and the 2-D channel.  It runs before phase 12:
+    # once this process has had an NCCL process group, torch.profiler sees
+    # no kernel of the card here (an H100 run read none), and phase 13
+    # reads device times by the profiler
+    zoo = zoo_phase(dev, smi, dict(
+        zero_counts=zero_counts, corner_counts=corner_counts, bound=bound,
+        spec_work=spec_work, spec_inputs=spec_inputs, cre=cre))
+
     # 12. the parallel layer on NCCL at world size 1 ------------------------
     # One card takes one NCCL rank: the layer's multi-rank logic is held by
     # the gloo tests on the CPU; here its collectives run at world size 1
@@ -2578,6 +2965,17 @@ def main() -> int:
         k: {n: v[n] for n in ("forward", "adjoint", "strided",
                                "per_training_step", "steps")}
         for k, v in trained.items()}
+    # phase 13: the dense UNO (a forward, a forward and backward), the
+    # Tucker UNO (forward and backward), the graph transformers (a forward),
+    # read in the run; the entry at each UNO block's shape
+    report["corner_contract"]["launches_zoo"] = dict(
+        uno_dense_forward=zoo["uno"]["forward"],
+        uno_dense_per_block=zoo["uno"]["per_block"],
+        uno_dense_forward_backward=zoo["uno"]["training"],
+        uno_tucker=zoo["uno"]["tucker"],
+        **{f"transformer_{k}": v["launches"]
+           for k, v in zoo["graph"].items()})
+    report["corner_contract"]["uno_shapes"] = zoo["uno"]["per_shape"]
     print(json.dumps({"kernels": [report[k] for k in
                                   (*every, "corner_contract")]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-from . import channel_flow
+from . import channel2d, channel_flow
+from .channel2d import NSControlEnv2D
 from .channel_flow import (ChannelGrid, ChannelState, apply_boundary_condition,
                            batched_rollout, boundary_pressures,
                            calculate_mean_u, compute_pressure, compute_rhs,
@@ -19,5 +20,5 @@ __all__ = [
     "init_turbulent_state", "make_channel_grid", "poisson_solve",
     "projection_step", "rand_control", "reichardt_profile", "rk3_step",
     "rollout", "spinup_chunk", "batch_states", "unbatch_states",
-    "NSControlEnv",
+    "NSControlEnv", "channel2d", "NSControlEnv2D",
 ]

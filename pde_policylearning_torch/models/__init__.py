@@ -1,7 +1,9 @@
 from .dispatcher import (MODEL_ZOO, available_models, dispatch_model,
                          get_model, register_model)
+from .deeponet import DeepONetCartesianProd
 from .fno import (FNO, FNO1d, FNO2d, FNO3d, TFNO, TFNO1d, TFNO2d, TFNO3d,
                   FNOBlocks)
+from .graph import GAT, GCN, GraphAttention, GraphConvolution
 from .mfn import FourierNet, MFNFourierLayer, MultiplicativeNet
 from .observers import (DoubleConv, FNO2dObserver, RNO2dObserver, UNet,
                         make_grid)
@@ -10,6 +12,7 @@ from .pino import (DenseNet, LowRank2d, PINObserver2d, PINObserverFullField,
                    get_act)
 from .rno import (RNO2d, FourierLayer2d, RNOCell, RNOLayer,
                   RNOSpectralConv2d, SpectralConvWithFC, SpectralRegressor)
+from .sfno import SFNO, SphericalConv
 from .spectral_layers import SpectralConv
 from .transformer import (BulkRegressor, Conv2dResBlock, DownScaler,
                           FeedForward, FourierTransformer2D,
@@ -18,6 +21,7 @@ from .transformer import (BulkRegressor, Conv2dResBlock, DownScaler,
                           SpectralConv1dToken, UpScaler, attention,
                           causal_linear_attention, freq_attention,
                           linear_attention, positional_encoding)
+from .uno import UNO
 
 __all__ = ["FNO", "FNO1d", "FNO2d", "FNO3d", "TFNO", "TFNO1d", "TFNO2d",
            "TFNO3d", "FNOBlocks", "FNO2dObserver", "RNO2dObserver", "UNet",
@@ -34,4 +38,6 @@ __all__ = ["FNO", "FNO1d", "FNO2d", "FNO3d", "TFNO", "TFNO1d", "TFNO2d",
            "attention", "causal_linear_attention", "freq_attention",
            "linear_attention", "positional_encoding", "MODEL_ZOO",
            "available_models", "dispatch_model", "get_model",
-           "register_model"]
+           "register_model", "UNO", "GCN", "GAT", "GraphAttention",
+           "GraphConvolution", "SFNO", "SphericalConv",
+           "DeepONetCartesianProd"]

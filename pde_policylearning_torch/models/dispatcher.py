@@ -10,16 +10,10 @@ import inspect
 import warnings
 
 from .fno import FNO, FNO1d, FNO2d, FNO3d, TFNO, TFNO1d, TFNO2d, TFNO3d
-
-
-def _uno(**_):
-    raise NotImplementedError(
-        "model 'uno' is not ported yet: ROADMAP.md queue 1 item 8 (the rest "
-        "of the zoo, models/uno.py)")
-
+from .uno import UNO
 
 MODEL_ZOO = {
-    "uno": _uno,
+    "uno": UNO,
     "tfno": TFNO,
     "tfno1d": TFNO1d,
     "tfno2d": TFNO2d,

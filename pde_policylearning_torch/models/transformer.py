@@ -38,10 +38,9 @@ from torch.nn import functional as F
 from ..ops import factorized, fourier
 from ..utils.device import resolve_device
 from . import layers
+from .graph import GAT, GCN
 from .rno import SpectralRegressor
 from .spectral_layers import _as_parameters, _as_weight
-
-_GRAPH = "ROADMAP.md queue 1 item 8 (models/graph.py)"
 
 _ACT = {"relu": F.relu, "silu": F.silu, "gelu": layers.gelu}
 
@@ -370,6 +369,62 @@ class BulkRegressor(nn.Module):
         return torch.sort(out, dim=-1).values if self.sort_output else out
 
 
+class _DenseOrGraph:
+    """The Dense route of a graph feature lift: flax's `Dense` leaves
+    `kernel` (in, out) and `bias` held as they are, beside the graph
+    layers, and the rule that picks the route (JAX
+    `models/transformer.py:362-371`: the graph layers when an edge is
+    given)."""
+
+    def _add_dense(self, in_features, out_features, generator, factory):
+        kernel = torch.empty((in_features, out_features), **factory)
+        kernel.normal_(0.0, in_features ** -0.5, generator=generator)
+        self.kernel = nn.Parameter(kernel)
+        self.bias = nn.Parameter(torch.zeros(out_features, **factory))
+
+    def dense(self, x):
+        return x @ self.kernel + self.bias
+
+
+class GCNFeatExtract(_DenseOrGraph, GCN):
+    """`feat_extract` of `feat_extract_type='gcn'`: the GCN layers
+    `gc{i}` with an edge, the Dense without one."""
+    jax_alternatives = (("kernel", "bias"), ("gc",))
+
+    def __init__(self, in_features, out_features, num_layers=2,
+                 generator=None, **factory):
+        super().__init__(in_features, out_features, num_layers,
+                         generator=generator, **factory)
+        self._add_dense(in_features, out_features, generator, factory)
+
+    def forward(self, x, edge=None, deterministic: bool = True,
+                generator=None):
+        return self.dense(x) if edge is None else super().forward(x, edge)
+
+
+class GATFeatExtract(_DenseOrGraph, GAT):
+    """`feat_extract` of `feat_extract_type='gat'`: the GAT layers
+    `gat{i}` with an edge (dropout from `generator` when not
+    deterministic), the Dense without one."""
+    jax_alternatives = (("kernel", "bias"), ("gat",))
+
+    def __init__(self, in_features, out_features, num_layers=2,
+                 generator=None, **factory):
+        super().__init__(in_features, out_features, num_layers,
+                         generator=generator, **factory)
+        self._add_dense(in_features, out_features, generator, factory)
+
+    def forward(self, x, edge=None, deterministic: bool = True,
+                generator=None):
+        if edge is None:
+            return self.dense(x)
+        return super().forward(x, edge, deterministic=deterministic,
+                               generator=generator)
+
+
+_GRAPH_FEAT = {"gcn": GCNFeatExtract, "gat": GATFeatExtract}
+
+
 class SimpleTransformer(nn.Module):
     """Sequence-to-field operator transformer (transformer_models.py:506):
     (T, H, W) flattened to tokens -> feature lift -> `num_encoder_layers`
@@ -393,17 +448,22 @@ class SimpleTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if feat_extract_type in ("gcn", "gat"):
-            raise NotImplementedError(
-                f"feat_extract_type={feat_extract_type!r} is not ported yet: "
-                f"{_GRAPH}")
         factory = dict(device=resolve_device(device), dtype=dtype)
         self.n_hidden = n_hidden
         self.n_targets = n_targets
         self.num_encoder_layers = num_encoder_layers
         self.spacial_residual = spacial_residual
-        self.feat_extract = layers.dense(node_feats, n_hidden, generator,
-                                         **factory)
+        self.feat_extract_type = feat_extract_type
+        if feat_extract_type in _GRAPH_FEAT:
+            self.feat_extract = _GRAPH_FEAT[feat_extract_type](
+                node_feats, n_hidden, num_feat_layers, generator=generator,
+                **factory)
+        elif feat_extract_type is None:
+            self.feat_extract = layers.dense(node_feats, n_hidden,
+                                             generator, **factory)
+        else:
+            raise ValueError(f"Unknown feat_extract_type "
+                             f"{feat_extract_type!r}")
         for i in range(num_encoder_layers):
             self.add_module(f"encoder{i}", SimpleTransformerEncoderLayer(
                 d_model=n_hidden, n_head=n_head, pos_dim=pos_dim,
@@ -418,9 +478,17 @@ class SimpleTransformer(nn.Module):
             conv_backend=conv_backend, generator=generator, **factory)
 
     def forward(self, node, v_plane=None, pos=None, grid=None, weight=None,
-                edge=None, deterministic: bool = True):
+                edge=None, deterministic: bool = True, generator=None):
+        """node: (B, T, H, W, D) -> (B, T, H, W, n_targets).  `edge`
+        (B, N, N), N = T H W, feeds a 'gcn' / 'gat' feature lift, and
+        `generator` draws the GAT's attention dropout."""
         B, T, H, W, D = node.shape
-        x = self.feat_extract(node.reshape(B, -1, D))
+        x = node.reshape(B, -1, D)
+        if self.feat_extract_type is None:
+            x = self.feat_extract(x)
+        else:
+            x = self.feat_extract(x, edge, deterministic=deterministic,
+                                  generator=generator)
         res = x
         for i in range(self.num_encoder_layers):
             x, _ = getattr(self, f"encoder{i}")(x, pos=pos, weight=weight,

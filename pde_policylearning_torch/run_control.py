@@ -15,9 +15,9 @@ the repository's `run_control.py` builds from it: `unmanipulated`, `gt`,
 from `model_checkpoint`, a checkpoint of the port's `run_pde_observers`,
 or seeded weights where there is none; the normalizers of the first 100
 planes of `DATA_FOLDER`).  With `collect_data` the run's planes are
-written in the trainable format.  It runs on the card unless `--device`
-names another.  The 2-D env (`env_name: NSControlEnv2D`) is not ported
-yet.
+written in the trainable format.  With `env_name: NSControlEnv2D` it runs
+the 2-D channel env (`run_control_2d`) instead.  It runs on the card
+unless `--device` names another.
 """
 from __future__ import annotations
 
@@ -30,12 +30,11 @@ from . import models
 from .control import make_policy, run_closed_loop
 from .control.loop import save_collected_dataset
 from .data import PDEDataset
-from .envs import NSControlEnv
+from .envs import NSControlEnv, NSControlEnv2D
 from .training import load_checkpoint
 from .utils import (default_parser, load_yaml, merge_args_with_yaml,
                     resolve_device)
 
-_ENV_2D = "ROADMAP.md queue 1 item 8 (the rest of the zoo: envs/channel2d.py)"
 OBSERVER_POLICIES = ("fno", "rno", "transformer", "optimal-observer")
 
 
@@ -43,11 +42,10 @@ def run_control(args, observer_model=None, train_dataset=None, device=None):
     """Run `args.policy_name` on a fresh `NSControlEnv` on `device` (None:
     `args.device`, else the card); `observer_model` holds its own
     parameters.  Returns `run_closed_loop`'s result."""
-    if args.get("env_name", "NSControlEnvMatlab") == "NSControlEnv2D":
-        raise NotImplementedError(
-            f"the 2-D channel env is not ported yet: {_ENV_2D}")
     device = resolve_device(device if device is not None
                             else args.get("device"))
+    if args.get("env_name", "NSControlEnvMatlab") == "NSControlEnv2D":
+        return run_control_2d(args, device)
     env = NSControlEnv(
         Re=float(args.get("Re", -1)),
         detect_plane=int(args.get("detect_plane", 25)),
@@ -102,6 +100,31 @@ def run_control(args, observer_model=None, train_dataset=None, device=None):
         print(f"Collected data saved under {out_dir} "
               "(trainable P_planes/V_planes + metadata)")
     return result
+
+
+def run_control_2d(args, device=None):
+    """The 2-D env's control loop (run_control.py:86-110): `gt` (the
+    opposition control) or no actuation, `control_timestep` steps (100 by
+    default).  Returns {"series": {key: array over the steps}}."""
+    env = NSControlEnv2D(
+        detect_plane=int(args.get("detect_plane", -10)),
+        bc_type=args.get("bc_type", "original"),
+        Re=float(args.get("Re", 100.0)) if float(args.get("Re", -1)) > 0
+        else 100.0,
+        fix_flow=bool(args.get("fix_flow", False)),
+        device=resolve_device(device))
+    n_steps = int(args.get("control_timestep", 100))
+    policy = args.get("policy_name", "unmanipulated")
+    series = []
+    for i in range(n_steps):
+        bc = env.gt_control() if policy == "gt" else None
+        _, _, _, info = env.step(bc)
+        series.append(info)
+        if (i + 1) % max(1, n_steps // 5) == 0:
+            print(f"step {i + 1}/{n_steps}: shear "
+                  f"{info['drag_reduction/1_shear_stress']:.5f}", flush=True)
+    return {"series": {k: np.asarray([s[k] for s in series])
+                       for k in series[0]}}
 
 
 def build_observer(args, device=None, generator=None):

@@ -29,7 +29,15 @@ Each layout goes by the rule of the torch module that owns the leaf:
 - `nn.LayerNorm`, `nn.BatchNorm2d`: `scale` becomes `weight`;
 - the `batch_stats` collection's `mean` and `var` fill a BatchNorm's
   `running_mean` and `running_var`.
-Every other leaf keeps its name and layout.
+Every other leaf keeps its name and layout (a 0-d leaf, such as
+DeepONet's scalar `bias`, included).
+
+One rule is not about layouts: a module whose flax counterpart builds one
+of two sets of leaves at call time (the transformer's graph feature
+lift, a GCN / GAT with an edge and a Dense without) names them in its
+`jax_alternatives`, tuples of the local name prefixes of each set.  A
+tree that fills every parameter of one set leaves the others as they
+are, and they do not count as missing.
 """
 from __future__ import annotations
 
@@ -111,7 +119,18 @@ def load_jax_params(module: nn.Module, params: dict,
                         f"{tuple(value.shape)}")
                 p.copy_(torch.as_tensor(value.copy(order="C")))
                 filled.add(target)
-    missing = sorted(set(own) - filled)
+    missing = set(own) - filled
+    for mname, owner in owners.items():
+        routes = getattr(owner, "jax_alternatives", None)
+        if routes is None:
+            continue
+        base = f"{mname}." if mname else ""
+        local = [n[len(base):] for n in own if n.startswith(base)]
+        sets = [{base + n for n in local if n.startswith(r)}
+                for r in routes]
+        if any(s and not (s & missing) for s in sets):
+            missing -= set().union(*sets)
+    missing = sorted(missing)
     if missing:
         raise KeyError("load_jax_params: the tree fills no value for "
                        f"{missing}")

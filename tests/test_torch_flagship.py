@@ -419,8 +419,14 @@ def test_run_control_entry_on_the_cpu(tmp_path, capsys, policy):
     assert np.abs(res["opV2"].mean(axis=(1, 2))).max() < 1e-6
     saved = os.listdir(str(tmp_path / "out" / cfg["exp_name"]))
     assert "metadata.npy" in saved and "opV2.npy" in saved
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        rc.run_control(DotDict(env_name="NSControlEnv2D"), device="cpu")
+    # the 2-D env through the same entry: a few steps of its series
+    res2d = rc.run_control(DotDict(env_name="NSControlEnv2D",
+                                   policy_name=policy, control_timestep=3),
+                           device="cpu")
+    shear = res2d["series"]["drag_reduction/1_shear_stress"]
+    assert shear.shape == (3,) and np.isfinite(shear).all()
+    assert res2d["series"]["drag_reduction_relative/1_shear_stress"][0] \
+        == 1.0
 
 
 def test_observer_training_hands_off_to_run_control(tmp_path, capsys):

@@ -52,8 +52,10 @@ _IMPORT_TPU = re.compile(
 def test_port_never_imports_the_jax_package():
     """No module of the port (the models, policies, training stack, data,
     native loader and entries of every slice, the flagship slice's PINO
-    models and full-field training, PINO pretraining and DDPG among them)
-    nor the smoke script imports pde_policylearning_tpu."""
+    models and full-field training, PINO pretraining, DDPG, the parallel
+    layer, the UNO, graph, spherical and DeepONet models and the 2-D
+    channel among them) nor the smoke script imports
+    pde_policylearning_tpu."""
     files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     names = {f.name for f in files}
@@ -64,7 +66,9 @@ def test_port_never_imports_the_jax_package():
             "pde_losses.py", "synthetic.py", "pino_datasets.py",
             "pino_train.py", "train_pino.py", "ddpg.py", "gym_env.py",
             "main_ddpg.py", "mesh.py", "patching.py", "sharded_env.py",
-            "launch.py", "dryrun.py"} <= names
+            "launch.py", "dryrun.py", "graph.py", "uno.py", "channel2d.py",
+            "run_cfd_simulation.py", "sht.py", "sfno.py", "deeponet.py",
+            "run_learning_beta_to_k.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_TPU.search(f.read_text())]
     assert not offenders, f"imports the JAX package: {offenders}"

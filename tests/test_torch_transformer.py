@@ -268,6 +268,17 @@ def test_full_width_transformer_and_launches(monkeypatch):
     assert err < 1e-5
 
 
-def test_graph_feature_extraction_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tt.SimpleTransformer(feat_extract_type="gcn", **CPU64)
+@pytest.mark.parametrize("kind", ["gcn", "gat"])
+def test_graph_feature_extraction_is_accepted(kind):
+    """The constructor takes the graph feature lifts: `feat_extract` owns
+    the graph layers and the Dense leaves beside them, and any other
+    type is refused (the parity is `tests/test_torch_zoo.py`'s)."""
+    m = tt.SimpleTransformer(feat_extract_type=kind, n_hidden=8,
+                             num_feat_layers=2, **CPU64)
+    names = {n for n, _ in m.feat_extract.named_parameters()}
+    layer = "gc" if kind == "gcn" else "gat"
+    assert {"kernel", "bias", f"{layer}0.{'w' if kind == 'gcn' else 'W'}"
+            ".weight", f"{layer}1.{'w' if kind == 'gcn' else 'W'}.weight"} \
+        <= names
+    with pytest.raises(ValueError, match="feat_extract_type"):
+        tt.SimpleTransformer(feat_extract_type="mlp", **CPU64)
