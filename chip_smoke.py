@@ -168,6 +168,24 @@ result):
      float64 on both grids (1e-5) and the SFNO forward (1e-4) and
      backward; `run_learning_beta_to_k.main` at its defaults, its test
      rel-L2 falling.
+ 14. (run before phase 12, as 13) DINo at the `train_dino` defaults:
+     the generated NS and wave trajectories (64 of 32 x 32 x 10) on the
+     card against the CPU from one field (1e-5); `train_dino.main` (navier,
+     code 50, hidden 64, dynamics hidden 512, 200 epochs of 4 steps at
+     batch 16, float32, TF32 off): the auto-decoding loss falling, the
+     eval MSEs finite; `test_dino.main` on the .msgpack it wrote, its MSE
+     that of `eval_dino` on the same parameters and data; ms a training
+     step, steps/s, device ms, launches and busy share
+     (`tools/profile_paths.measure`); 5 training steps (80 trajectories)
+     and `eval_dino` on 8 from one set of parameters and data, float32 on
+     the card held to float64 on the CPU at DINO_FACTOR times the float32
+     CPU run's own distance; the spherical shallow water (2 channels, 32 x
+     64, xyz coordinates) for 10 epochs, its loss falling;
+     `utils.profiling` on one decode of a training batch (GFLOP/s, a
+     trace, the card's memory statistics); the library's Darcy (2000
+     sweeps), Burgers and spherical shallow-water loaders at their
+     defaults and `utils.misc`'s spectra on the card against the CPU (the
+     shells' sums take atomics there); no kernel of the port launched.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -226,19 +244,24 @@ def cuda_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def device_events(fn, reads=3):
+def device_events(fn, reads=3, empty_reads=5):
     """{kernel name: (launches, self device us)} of the device events of
     one call of fn under torch.profiler, from the most complete of `reads`
     readings.  The profiler now and then misses launches at the start of
     its window and was not seen to add one, so one short reading is not a
     launch the code skipped, and an exact count is held to the reading
-    with the most launches.  The short readings are tallied in
-    SHORT_READINGS."""
+    with the most launches.  Now and then it reads no device event at all
+    for a few readings in a row (an H100, torch 2.11: three empty
+    readings of ten launches in phase 13); while every reading is empty,
+    up to `empty_reads` more are taken.  The short readings are tallied
+    in SHORT_READINGS."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     best, totals = None, []
-    for _ in range(reads):
+    for i in range(reads + empty_reads):
+        if i >= reads and max(totals) > 0:
+            break
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -317,6 +340,10 @@ UNO_CORNER_SHAPES = {"block0": (20, 32, 17, 32, 32, 6, 6),
                      "block2": (20, 16, 9, 64, 64, 3, 3),
                      "block3": (20, 16, 9, 128, 64, 3, 3),
                      "block4": (20, 32, 17, 96, 32, 6, 6)}
+# phase 14: a float32 run on the card is held to float64 on the CPU at this
+# factor times the float32 CPU run's own distance from float64 (Adam's
+# m / sqrt(v) magnifies rounding where a gradient is near zero, on either)
+DINO_FACTOR = 10
 
 
 def zoo_phase(dev, smi, h):
@@ -658,6 +685,231 @@ def zoo_phase(dev, smi, h):
         f"test rel-L2 {[r[2] for r in hist]}  ({smi})")
     out["beta_to_k"] = dict(seconds=bk_s, history=hist)
     log(f"{elapsed()} zoo: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def dino_phase(dev, smi, port_launches):
+    """Phase 14, DINo end to end and the last ops, data and utils, at the
+    `train_dino` defaults; `port_launches()` counts the launches of every
+    kernel of the port since the counts were last set to 0.  Returns the
+    phase's numbers."""
+    import numpy as np
+    import torch
+
+    from pde_policylearning_torch import test_dino as tdino
+    from pde_policylearning_torch import train_dino as trdino
+    from pde_policylearning_torch.data import dino_datasets as dd
+    from pde_policylearning_torch.data import library as lib
+    from pde_policylearning_torch.data.synthetic import gaussian_rf_2d
+    from pde_policylearning_torch.models.dino import Decoder, Derivative
+    from pde_policylearning_torch.tools.profile_paths import measure
+    from pde_policylearning_torch.training import dino_train as dt
+    from pde_policylearning_torch.utils import profiling
+    from pde_policylearning_torch.utils.misc import spectrum2, spectrum3
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp()
+    cpu32 = dict(device="cpu", dtype=torch.float32)
+
+    def cpu_gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    # the generated trajectories: the card against the CPU from one field
+    for name, fn, kw in (
+            ("navier", dd.navier_stokes_data_from_field, {}),
+            ("wave", dd.wave_data_from_field, dict(alpha=3.0, tau=5.0))):
+        w0 = gaussian_rf_2d(32, 64, generator=cpu_gen(1), **kw, **cpu32)
+        check(f"DINo data {name} (64, 10, 32, 32, 1): the card against the "
+              "CPU, float32", rel(fn(w0.to(dev), 10).cpu(), fn(w0, 10)), 1e-5)
+
+    # the entry at its defaults: navier, 64 x 32 x 32 x 10, code 50,
+    # hidden 64, dynamics hidden 512, 200 epochs of 4 steps, float32
+    log(f"{elapsed()} DINo: train_dino.main at its defaults (navier, 64 "
+        "trajectories of 32 x 32 x 10 frames, code 50, hidden 64, dynamics "
+        "hidden 512, 200 epochs at batch 16, lr 1e-2)")
+    ckpt = os.path.join(tmp, "dino.msgpack")
+    launched = port_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = trdino.main(["--device", str(dev), "--out", ckpt])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    hist, ev = run["history"], run["eval"]
+    log(f"  {main_s:.1f} s; autodec {hist['autodec']}; dyn {hist['dyn']}; "
+        f"eval {ev['mse']:.4e} in-t {ev['mse_in_t']:.4e} out-t "
+        f"{ev['mse_out_t']:.4e}")
+    if not (np.isfinite(hist["autodec"]).all()
+            and hist["autodec"][-1] < 0.5 * hist["autodec"][0]):
+        FAILED.append(f"DINo: the auto-decoding loss does not fall: "
+                      f"{hist['autodec']}")
+    if not all(np.isfinite(ev[k]) for k in ("mse", "mse_in_t",
+                                            "mse_out_t")):
+        FAILED.append(f"DINo: eval MSEs not finite: {ev}")
+
+    data, t_grid = run["data"], run["t_grid"]
+    dec, dyn = run["dec"], run["dyn"]
+
+    # test_dino on the file this train_dino wrote: the same MSE as
+    # eval_dino of the same parameters on the same data
+    res = tdino.main(["--ckpt", ckpt, "--device", str(dev)])
+    # the data test_dino draws: a generator seeded 1 on the card
+    tdata = dd.generate_navier_stokes_data(
+        8, 32, 10, generator=torch.Generator(device=dev).manual_seed(1),
+        device=dev)
+    ref = dt.eval_dino(dec, dyn, tdata, t_grid, code_dim=50)
+    check("DINo: test_dino.main on the written .msgpack against eval_dino "
+          "of the trained modules (MSE)",
+          abs(res["mse"] - ref["mse"]) / ref["mse"], 1e-6)
+    out["test_dino"] = {k: res[k] for k in ("mse", "mse_in_t", "mse_out_t")}
+
+    # ms a training step unprofiled, then the device's share under the
+    # profiler (tools/profile_paths.measure), 5 epochs = 20 steps a run
+    mdec, mdyn = copy.deepcopy(dec), copy.deepcopy(dyn)
+
+    def five_epochs():
+        dt.train_dino(mdec, mdyn, data, t_grid, code_dim=50, n_epochs=5,
+                      generator=torch.Generator(device=dev).manual_seed(3),
+                      verbose=False)
+    step = measure(five_epochs, 20, 20)
+    out["training_step"] = {k: step[k] for k in (
+        "ms_per_step", "device_ms_per_step", "busy_share",
+        "device_launches_per_step", "top")}
+    out["training_step"]["steps_per_s"] = 1e3 / step["ms_per_step"]
+    out["train_dino_main_s"] = main_s
+    log("  DINo training step: " + json.dumps(out["training_step"])
+        + f"  ({smi})")
+
+
+    # the card against the CPU: 5 training steps (80 trajectories, batch
+    # 16) and eval_dino on 8, from the same parameters and data; float32
+    # on the card held to float64 on the CPU at DINO_FACTOR times the
+    # float32 CPU run's own distance from float64
+    w0 = gaussian_rf_2d(32, 80, generator=cpu_gen(2), **cpu32)
+    d32 = dd.navier_stokes_data_from_field(w0, 10)
+    perms = [torch.randperm(80, generator=cpu_gen(4)).numpy()]
+    g = cpu_gen(5)
+    dec0 = Decoder(1, 64, 50, 2, generator=g, device="cpu",
+                   dtype=torch.float64)
+    dyn0 = Derivative(1, 50, 512, generator=g, device="cpu",
+                      dtype=torch.float64)
+    tg = torch.linspace(0, 1, 10, dtype=torch.float64)
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu32", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64)):
+        m_dec = copy.deepcopy(dec0).to(device, dtype)
+        m_dyn = copy.deepcopy(dyn0).to(device, dtype)
+        states, h = dt.train_dino(
+            m_dec, m_dyn, d32.to(device, dtype), tg.to(device, dtype),
+            code_dim=50, n_epochs=1, perms=perms, log_interval=1,
+            verbose=False)
+        e = dt.eval_dino(m_dec, m_dyn, d32[:8].to(device, dtype),
+                         tg.to(device, dtype), code_dim=50)
+        vec = torch.cat([states.reshape(-1)]
+                        + [p.detach().reshape(-1)
+                           for p in (*m_dec.parameters(),
+                                     *m_dyn.parameters())])
+        runs[tag] = dict(vec=vec.double().cpu(), hist=h, eval=e,
+                         pred=e["pred"].double().cpu())
+    dino_cpu = {}
+    for what in ("vec", "pred"):
+        d_card = rel(runs["card"][what], runs["cpu64"][what])
+        d_cpu = rel(runs["cpu32"][what], runs["cpu64"][what])
+        dino_cpu[what] = (d_card, d_cpu)
+        check(f"DINo {what} (5 steps; then eval_dino on 8): float32 on the "
+              f"card from float64 ({d_card:.3e}) against {DINO_FACTOR} x the "
+              f"float32 CPU run's ({d_cpu:.3e})", d_card,
+              DINO_FACTOR * d_cpu)
+    for k in ("mse", "mse_out_t"):
+        a, b, c = (runs[t]["eval"][k] for t in ("card", "cpu32", "cpu64"))
+        dino_cpu[k] = (abs(a - c) / c, abs(b - c) / c)
+        check(f"DINo eval {k}: the card from float64 ({abs(a - c) / c:.3e}) "
+              f"against {DINO_FACTOR} x the float32 CPU run's "
+              f"({abs(b - c) / c:.3e})", abs(a - c) / c,
+              DINO_FACTOR * abs(b - c) / c)
+    log(f"  DINo card / CPU float32 distances from float64: {dino_cpu}")
+    out["card_against_cpu"] = dino_cpu
+
+    # the spherical shallow water: state 2, 32 x 64, xyz coordinates
+    log(f"{elapsed()} DINo: shallow water (64 trajectories of 32 x 64 x 10 "
+        "frames, 2 channels, xyz coordinates), 10 epochs")
+    ds = dd.ShallowWaterDataset(64, 10, 32, 64, device=dev)
+    sdata, coords = ds.arrays(dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    sdec = Decoder(2, 64, 50, 3, generator=g, device=dev)
+    sdyn = Derivative(2, 50, 512, generator=g, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, shist = dt.train_dino(sdec, sdyn, sdata, t_grid, code_dim=50,
+                             state_dim=2, n_epochs=10, generator=g,
+                             log_interval=2, coords=coords, verbose=False)
+    torch.cuda.synchronize()
+    sw_s = time.perf_counter() - t0
+    if not (np.isfinite(shist["autodec"]).all()
+            and shist["autodec"][-1] < shist["autodec"][0]):
+        FAILED.append(f"DINo shallow water: the loss does not fall: "
+                      f"{shist['autodec']}")
+    log(f"  {sw_s:.1f} s for 40 steps; autodec {shist['autodec']}")
+    out["shallow_water"] = dict(seconds=sw_s, autodec=shist["autodec"])
+
+    # utils/profiling on one decode of a training batch (16 x 10 frames)
+    coords2 = dt.make_coords(32, 32, device=dev)
+    batch = torch.randn(16, 10, 50, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+
+    def decode():
+        with torch.no_grad():
+            return dt._decode_batch(dec, coords2, batch, 1, 50)
+    prof = profiling.profile_result(decode, warmup=3, iters=20)
+    with profiling.trace(os.path.join(tmp, "trace")) as path:
+        decode()
+    trace_bytes = os.path.getsize(path)
+    mem = profiling.memory_summary(dev)
+    log(f"  one decode of a training batch: {prof['mean_ms']:.3f} ms, "
+        f"{prof.get('flops', 0) / 1e9:.3f} GFLOP, "
+        f"{prof.get('gflops_per_s', 0):.1f} GFLOP/s; trace {trace_bytes} "
+        f"bytes; memory: " + mem.splitlines()[0] + f"  ({smi})")
+    if not (prof.get("flops") and trace_bytes > 0
+            and "allocated_bytes" in mem):
+        FAILED.append(f"utils/profiling: {prof}, trace {trace_bytes}, "
+                      f"{mem[:200]}")
+    out["decode"] = prof
+
+    # library loaders at their defaults, the card against the CPU from one
+    # field (float32; Burgers by the same rule as DINo)
+    grf = gaussian_rf_2d(32, 120, alpha=2.0, tau=3.0, generator=cpu_gen(8),
+                         **cpu32)
+    a_c, u_c = lib.darcy_from_field(grf.to(dev))
+    a_h, u_h = lib.darcy_from_field(grf)
+    check("library: Darcy a (120 x 32 x 32) card against CPU",
+          rel(a_c.cpu(), a_h), 0.0)
+    check("library: Darcy u, 2000 Jacobi sweeps, card against CPU",
+          rel(u_c.cpu(), u_h), 1e-5)
+    u0 = gaussian_rf_2d(128, 120, generator=cpu_gen(9), **cpu32)[:, :, 0]
+    b_card = lib.burgers_from_field(u0.to(dev)).cpu()
+    b_32 = lib.burgers_from_field(u0)
+    b_64 = lib.burgers_from_field(u0.double())
+    check(f"library: Burgers u(T), 500 steps at 128: the card from float64 "
+          f"against {DINO_FACTOR} x the CPU float32's "
+          f"({rel(b_32, b_64):.3e})", rel(b_card, b_64),
+          DINO_FACTOR * rel(b_32, b_64))
+    for s_card, s_cpu in zip(lib.load_spherical_swe(device=dev),
+                             lib.load_spherical_swe(device="cpu")):
+        check("library: spherical SWE (32 x 64) card against CPU",
+              rel(torch.as_tensor(s_card.y), torch.as_tensor(s_cpu.y)), 1e-5)
+    # utils/misc's spectra: index_add_ sums each shell with atomics on the
+    # card, in another order than the CPU's
+    for fn, shape in ((spectrum2, (64, 32, 32)),
+                      (spectrum3, (4, 32, 32, 32))):
+        u = torch.randn(shape, generator=cpu_gen(10))
+        check(f"utils.misc {fn.__name__} {shape}: card against CPU, float32",
+              rel(fn(u.to(dev)).cpu(), fn(u)), 1e-5)
+    n_port = port_launches() - launched
+    if n_port:
+        FAILED.append(f"DINo phase launched {n_port} kernels of the port")
+    log(f"{elapsed()} DINo phase: {time.perf_counter() - t_phase:.1f} s, "
+        f"{n_port} launches of the port's kernels")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2677,6 +2929,15 @@ def main() -> int:
     zoo = zoo_phase(dev, smi, dict(
         zero_counts=zero_counts, corner_counts=corner_counts, bound=bound,
         spec_work=spec_work, spec_inputs=spec_inputs, cre=cre))
+
+    # 14. DINo end to end and the last ops, data and utils; before phase 12
+    # for the same reason as phase 13
+    def port_launches():
+        return sum(fn.launches for fn in every.values()) \
+            + sum(corner_counts())
+    dino = dino_phase(dev, smi, port_launches)
+    log("  dino " + json.dumps({k: v for k, v in dino.items()
+                                if k != "decode"}))
 
     # 12. the parallel layer on NCCL at world size 1 ------------------------
     # One card takes one NCCL rank: the layer's multi-rank logic is held by

@@ -112,11 +112,18 @@ def generate_kolmogorov_data(n_traj: int, size: int, nt: int,
     """Kolmogorov-flow vorticity trajectories under the forcing -4 cos(4y)
     (pino_utils/losses.py:288), shaped like KFDataset samples: (n_traj,
     size, size, nt), frame 0 the random-field initial condition."""
-    device = resolve_device(device)
-    w0 = gaussian_rf_2d(size, n_traj, generator=generator, device=device,
-                        dtype=dtype)
+    w0 = gaussian_rf_2d(size, n_traj, generator=generator,
+                        device=resolve_device(device), dtype=dtype)
+    return kolmogorov_from_field(w0, nt, visc, t_interval, substeps)
+
+
+def kolmogorov_from_field(w0: torch.Tensor, nt: int, visc: float = 1.0 / 40,
+                          t_interval: float = 1.0, substeps: int = 32
+                          ) -> torch.Tensor:
+    """`generate_kolmogorov_data` after its draw: (B, size, size, nt)
+    trajectories from the initial vorticity w0 (B, size, size)."""
     dt = t_interval / ((nt - 1) * substeps)
-    forcing = get_forcing(size, device, dtype)[0, :, :, 0]
+    forcing = get_forcing(w0.shape[-1], w0.device, w0.dtype)[0, :, :, 0]
     frames = ns_vorticity_rollout(w0, forcing, visc, dt,
                                   n_steps=(nt - 1) * substeps,
                                   record_every=substeps)

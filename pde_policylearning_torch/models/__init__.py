@@ -1,6 +1,9 @@
 from .dispatcher import (MODEL_ZOO, available_models, dispatch_model,
                          get_model, register_model)
 from .deeponet import DeepONetCartesianProd
+from .dino import Decoder as DINoDecoder
+from .dino import Derivative as DINoDerivative
+from .dino import SetEncoder, SwishMLP, odeint_rk4
 from .fno import (FNO, FNO1d, FNO2d, FNO3d, TFNO, TFNO1d, TFNO2d, TFNO3d,
                   FNOBlocks)
 from .graph import GAT, GCN, GraphAttention, GraphConvolution
@@ -40,4 +43,5 @@ __all__ = ["FNO", "FNO1d", "FNO2d", "FNO3d", "TFNO", "TFNO1d", "TFNO2d",
            "available_models", "dispatch_model", "get_model",
            "register_model", "UNO", "GCN", "GAT", "GraphAttention",
            "GraphConvolution", "SFNO", "SphericalConv",
-           "DeepONetCartesianProd"]
+           "DeepONetCartesianProd", "DINoDecoder", "DINoDerivative",
+           "SetEncoder", "SwishMLP", "odeint_rk4"]

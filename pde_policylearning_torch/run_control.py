@@ -12,8 +12,9 @@ It reads `configs/base_control.yaml` as it is and builds the policies
 the repository's `run_control.py` builds from it: `unmanipulated`, `gt`,
 `rand`, and the observer policies `fno`, `rno`, `transformer` and
 `optimal-observer` (the observer
-from `model_checkpoint`, a checkpoint of the port's `run_pde_observers`,
-or seeded weights where there is none; the normalizers of the first 100
+from `model_checkpoint`, a checkpoint of the port's `run_pde_observers`
+or a `.msgpack` of the JAX package's (`training.checkpoint`), or seeded
+weights where there is none; the normalizers of the first 100
 planes of `DATA_FOLDER`).  With `collect_data` the run's planes are
 written in the trainable format.  With `env_name: NSControlEnv2D` it runs
 the 2-D channel env (`run_control_2d`) instead.  It runs on the card

@@ -188,7 +188,8 @@ def load_fullfield_data(args, device=None):
 def main_fullfield(args, device):
     """The physics-informed full-field branch (run_pde_observers.py
     :200-239; the JAX entry's `main_fullfield`) on `device`: train the
-    configured `PINObserverFullField` (or, with `eval_ckpt`, reload it),
+    configured `PINObserverFullField` (or, with `eval_ckpt`, reload it
+    from a file of either package: `.pt` or the JAX `.msgpack`),
     save the checkpoint before the held-out evaluation, and return (the
     model's state dict, history); history['checkpoint'] is the file
     written and history['test_rel_l2'] the held-out decoded rel-L2."""

@@ -5,7 +5,8 @@ tail-mean wall shear over the last half of the run.  The rows run on the
 staged RK3 kernels, as that script pins them (PDE_RK3_FULLSTEP=0), or on
 kernel D with --fullstep.  With --fno CHECKPOINT an `fno` row follows, as
 that script serves it: `FNO2dObserver(12, 12, 32)` from a checkpoint of
-`run_pde_observers` (`configs/base_fno.yaml`), the normalizers of the
+`run_pde_observers` (`configs/base_fno.yaml`; the port's `.pt` or the JAX
+package's `.msgpack`), the normalizers of the
 first 100 planes of --data, action_scale 0.3, action_clip 0.01.  With
 --fullfield CHECKPOINT the two flagship rows follow
 (scripts/drag_study.py:86-156): the full-width `PINObserverFullField` of

@@ -118,9 +118,11 @@ def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
              for key, n, t in top])
 
 
-def measure(fn, n_env_steps: int, n_steps: int):
+def measure(fn, n_env_steps: int, n_steps: int, reads: int = 3):
     """Unprofiled median of three runs after a warm-up, then one run under
-    torch.profiler; see the module docstring for the keys."""
+    torch.profiler; see the module docstring for the keys.  A profiled
+    run in which the profiler read no device event at all (seen now and
+    then on an H100, torch 2.11) is run again, up to `reads` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -131,19 +133,25 @@ def measure(fn, n_env_steps: int, n_steps: int):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # device kernels by name; a range the host annotated (the optimizer's
-    # `Optimizer.step`) also shows on the device's timeline, over the
-    # kernels it holds, and is left out
-    agg = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            n, t = agg.get(e.name, (0, 0.0))
-            agg[e.name] = (n + 1, t + e.self_device_time_total)
+    for _ in range(reads):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # device kernels by name; a range the host annotated (the
+        # optimizer's `Optimizer.step`) also shows on the device's
+        # timeline, over the kernels it holds, and is left out
+        agg = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA \
+                    and not getattr(e, "is_user_annotation", False):
+                n, t = agg.get(e.name, (0, 0.0))
+                agg[e.name] = (n + 1, t + e.self_device_time_total)
+        if agg:
+            break
+    else:
+        raise RuntimeError(f"measure: the profiler read no device event "
+                           f"in {reads} runs")
     kernels = [(k, n, t) for k, (n, t) in agg.items()]
     return summarize(kernels, sorted(walls)[1], n_env_steps, n_steps)
 

@@ -20,8 +20,10 @@ config's `ckpt_name` with `.pt` in place of its extension; every
 `<name>.resume.pt`, which `--resume` continues from.  `--resume` also
 takes a JAX resume blob (`<name>.msgpack.resume.npy`, read with numpy
 alone) and carries its parameters, Adam moments and counts
-(`utils.transplant.load_jax_resume`).  A missing data file is generated
-by the pseudo-spectral solver on the run's device.  It runs on the card
+(`utils.transplant.load_jax_resume`); `--ckpt` (and `--resume`) take the
+JAX entry's `.msgpack` as well (`training.checkpoint.load_checkpoint`).
+A missing data file is generated by the pseudo-spectral solver on the
+run's device.  It runs on the card
 unless `--device` names another; `--iterations` stops a run of the
 config early.
 """
@@ -93,7 +95,8 @@ def main(argv=None):
                         default="configs/pino-observer-pretrain-1s.yaml")
     parser.add_argument("--test", action="store_true")
     parser.add_argument("--ckpt", type=str, default=None,
-                        help="a checkpoint of this entry (parameters)")
+                        help="a checkpoint of this entry (parameters), "
+                             "or the JAX entry's .msgpack")
     parser.add_argument("--resume", type=str, default=None,
                         help="a .resume.pt of this entry, or a JAX "
                              ".resume.npy blob (parameters, Adam, count)")

@@ -41,6 +41,7 @@ are, and they do not count as missing.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import numpy as np
@@ -63,6 +64,16 @@ def _flatten(tree, prefix=""):
 
 
 _NORMS = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+
+
+def _numpy(value) -> np.ndarray:
+    """A leaf as numpy; a torch tensor (a bfloat16 leaf of `load_msgpack`)
+    through float32, which holds every bfloat16 value exactly."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def _carry(owner: Optional[nn.Module], leaf: str, value: np.ndarray):
@@ -105,7 +116,7 @@ def load_jax_params(module: nn.Module, params: dict,
             for name, value in _flatten(tree).items():
                 prefix, _, leaf = name.rpartition(".")
                 leaf, value = _carry(owners.get(prefix), leaf,
-                                     np.asarray(value))
+                                     _numpy(value))
                 target = f"{prefix}.{leaf}" if prefix else leaf
                 if target not in own:
                     raise KeyError(f"load_jax_params: no parameter "
@@ -150,6 +161,59 @@ def _flax_path(owners: dict, name: str) -> tuple:
     elif leaf == "weight" and isinstance(owner, _NORMS):
         leaf = "scale"
     return (*prefix.split("."), leaf) if prefix else (leaf,)
+
+
+_FACTOR = re.compile(r"^factors(\d+)$")
+
+
+def _flax_tree_path(owners: dict, name: str) -> tuple:
+    """`_flax_path` with a factor list's item under the list's key
+    (`factors1` -> ('factors', '1')), as flax's msgpack writes a list."""
+    path = _flax_path(owners, name)
+    m = _FACTOR.match(path[-1])
+    return (*path[:-1], "factors", m.group(1)) if m else path
+
+
+def jax_param_keys(module: nn.Module) -> dict:
+    """The keys of the module's flax parameter tree as nested dicts (the
+    leaves None): the target to which `training.checkpoint` adapts a
+    file's dense spectral layout."""
+    owners = dict(module.named_modules())
+    return _tree((_flax_tree_path(owners, n), None)
+                 for n, _ in module.named_parameters())
+
+
+def jax_params(module: nn.Module):
+    """The inverse of `load_jax_params`: (the flax parameter tree of the
+    module, its `batch_stats` collection or None) as nested dicts of
+    numpy arrays (torch tensors for bfloat16), each leaf in the flax
+    layout.  A module with `jax_alternatives` gives every set's leaves."""
+    owners = dict(module.named_modules())
+
+    def value(name, t):
+        prefix = name.rpartition(".")[0]
+        owner = owners.get(prefix)
+        t = t.detach().cpu()
+        if name.endswith(".weight") or name == "weight":
+            if isinstance(owner, nn.Linear):
+                t = t.T
+            elif isinstance(owner, nn.Conv2d):
+                t = t.permute(2, 3, 1, 0)
+            elif isinstance(owner, nn.ConvTranspose2d):
+                t = t.permute(2, 3, 0, 1).flip(0, 1)
+        t = t.contiguous()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+
+    params = _tree((_flax_tree_path(owners, n), value(n, p))
+                   for n, p in module.named_parameters())
+    stats = [(n, b) for n, b in module.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    if not stats:
+        return params, None
+    return params, _tree(
+        ((*n.rpartition(".")[0].split("."),
+          n.rpartition("_")[2]), b.detach().cpu().numpy())
+        for n, b in stats)
 
 
 def jax_leaf_order(module: nn.Module) -> list:

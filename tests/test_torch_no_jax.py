@@ -54,7 +54,8 @@ def test_port_never_imports_the_jax_package():
     native loader and entries of every slice, the flagship slice's PINO
     models and full-field training, PINO pretraining, DDPG, the parallel
     layer, the UNO, graph, spherical and DeepONet models and the 2-D
-    channel among them) nor the smoke script imports
+    channel, DINo, the .msgpack reader and the last ops, data and utils
+    among them) nor the smoke script imports
     pde_policylearning_tpu."""
     files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -68,7 +69,12 @@ def test_port_never_imports_the_jax_package():
             "main_ddpg.py", "mesh.py", "patching.py", "sharded_env.py",
             "launch.py", "dryrun.py", "graph.py", "uno.py", "channel2d.py",
             "run_cfd_simulation.py", "sht.py", "sfno.py", "deeponet.py",
-            "run_learning_beta_to_k.py"} <= names
+            "run_learning_beta_to_k.py", "dino.py", "dino_train.py",
+            "dino_datasets.py", "train_dino.py", "test_dino.py",
+            "library.py", "preprocess.py", "fem.py",
+            "fourier_continuation.py", "torch_init.py", "misc.py",
+            "profiling.py", "visualization.py",
+            "run_spec_visualization.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_TPU.search(f.read_text())]
     assert not offenders, f"imports the JAX package: {offenders}"
