@@ -179,8 +179,9 @@ result):
      (`tools/profile_paths.measure`); 5 training steps (80 trajectories)
      and `eval_dino` on 8 from one set of parameters and data, float32 on
      the card held to float64 on the CPU at DINO_FACTOR times the float32
-     CPU run's own distance; the spherical shallow water (2 channels, 32 x
-     64, xyz coordinates) for 10 epochs, its loss falling;
+     CPU run's own distance (one float32 ulp at least for a scalar); the
+     spherical shallow water (2 channels, 32 x 64, xyz coordinates) for 20
+     epochs, the last five epochs' mean loss 20% below the first five's;
      `utils.profiling` on one decode of a training batch (GFLOP/s, a
      trace, the card's memory statistics); the library's Darcy (2000
      sweeps), Burgers and spherical shallow-water loaders at their
@@ -244,31 +245,22 @@ def cuda_ms(fn, reps=20, warmup=3):
     return times[len(times) // 2]
 
 
-def device_events(fn, reads=3, empty_reads=5):
+def device_events(fn, reads=3):
     """{kernel name: (launches, self device us)} of the device events of
     one call of fn under torch.profiler, from the most complete of `reads`
-    readings.  The profiler now and then misses launches at the start of
-    its window and was not seen to add one, so one short reading is not a
-    launch the code skipped, and an exact count is held to the reading
-    with the most launches.  Now and then it reads no device event at all
-    for a few readings in a row (an H100, torch 2.11: three empty
-    readings of ten launches in phase 13); while every reading is empty,
-    up to `empty_reads` more are taken.  The short readings are tallied
-    in SHORT_READINGS."""
-    import torch
+    readings (each one `tools/profile_paths.profiled`, which reads again
+    where the profiler saw no device event at all).  The profiler now and
+    then misses launches at the start of its window and was not seen to
+    add one, so one short reading is not a launch the code skipped, and
+    an exact count is held to the reading with the most launches.  The
+    short readings are tallied in SHORT_READINGS."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from pde_policylearning_torch.tools.profile_paths import profiled
     best, totals = None, []
-    for i in range(reads + empty_reads):
-        if i >= reads and max(totals) > 0:
-            break
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+    for _ in range(reads):
         got = {e.key: (e.count, e.self_device_time_total)
-               for e in prof.key_averages()
+               for e in profiled(fn).key_averages()
                if e.device_type == DeviceType.CUDA}
         totals.append(sum(n for n, _ in got.values()))
         if best is None or totals[-1] > max(totals[:-1]):
@@ -779,7 +771,6 @@ def dino_phase(dev, smi, port_launches):
     log("  DINo training step: " + json.dumps(out["training_step"])
         + f"  ({smi})")
 
-
     # the card against the CPU: 5 training steps (80 trajectories, batch
     # 16) and eval_dino on 8, from the same parameters and data; float32
     # on the card held to float64 on the CPU at DINO_FACTOR times the
@@ -820,19 +811,22 @@ def dino_phase(dev, smi, port_launches):
               f"card from float64 ({d_card:.3e}) against {DINO_FACTOR} x the "
               f"float32 CPU run's ({d_cpu:.3e})", d_card,
               DINO_FACTOR * d_cpu)
+    # a scalar's float32 distance can land near 0 by chance: it counts as
+    # one float32 ulp at least
+    eps32 = torch.finfo(torch.float32).eps
     for k in ("mse", "mse_out_t"):
         a, b, c = (runs[t]["eval"][k] for t in ("card", "cpu32", "cpu64"))
         dino_cpu[k] = (abs(a - c) / c, abs(b - c) / c)
         check(f"DINo eval {k}: the card from float64 ({abs(a - c) / c:.3e}) "
               f"against {DINO_FACTOR} x the float32 CPU run's "
-              f"({abs(b - c) / c:.3e})", abs(a - c) / c,
-              DINO_FACTOR * abs(b - c) / c)
+              f"({abs(b - c) / c:.3e}, one ulp {eps32:.3e} at least)",
+              abs(a - c) / c, DINO_FACTOR * max(abs(b - c) / c, eps32))
     log(f"  DINo card / CPU float32 distances from float64: {dino_cpu}")
     out["card_against_cpu"] = dino_cpu
 
     # the spherical shallow water: state 2, 32 x 64, xyz coordinates
     log(f"{elapsed()} DINo: shallow water (64 trajectories of 32 x 64 x 10 "
-        "frames, 2 channels, xyz coordinates), 10 epochs")
+        "frames, 2 channels, xyz coordinates), 20 epochs")
     ds = dd.ShallowWaterDataset(64, 10, 32, 64, device=dev)
     sdata, coords = ds.arrays(dev)
     g = torch.Generator(device=dev).manual_seed(6)
@@ -841,15 +835,22 @@ def dino_phase(dev, smi, port_launches):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, shist = dt.train_dino(sdec, sdyn, sdata, t_grid, code_dim=50,
-                             state_dim=2, n_epochs=10, generator=g,
-                             log_interval=2, coords=coords, verbose=False)
+                             state_dim=2, n_epochs=20, generator=g,
+                             log_interval=1, coords=coords, verbose=False)
     torch.cuda.synchronize()
     sw_s = time.perf_counter() - t0
+    # each entry is one batch's loss, noisy from batch to batch (and the
+    # decoder gives both channels one value): the last five epochs' mean
+    # is held 20% below the first five's
+    sw_first, sw_last = (float(np.mean(shist["autodec"][s]))
+                         for s in (slice(0, 5), slice(-5, None)))
     if not (np.isfinite(shist["autodec"]).all()
-            and shist["autodec"][-1] < shist["autodec"][0]):
-        FAILED.append(f"DINo shallow water: the loss does not fall: "
+            and sw_last <= 0.8 * sw_first):
+        FAILED.append(f"DINo shallow water: the loss does not fall by 20%: "
                       f"{shist['autodec']}")
-    log(f"  {sw_s:.1f} s for 40 steps; autodec {shist['autodec']}")
+    log(f"  {sw_s:.1f} s for 80 steps; the last five epochs' mean loss "
+        f"{sw_last:.4e} against the first five's {sw_first:.4e} (at most "
+        f"0.8 x); autodec {shist['autodec']}")
     out["shallow_water"] = dict(seconds=sw_s, autodec=shist["autodec"])
 
     # utils/profiling on one decode of a training batch (16 x 10 frames)

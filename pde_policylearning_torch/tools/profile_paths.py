@@ -118,13 +118,34 @@ def summarize(kernels, wall: float, n_env_steps: int, n_steps: int):
              for key, n, t in top])
 
 
-def measure(fn, n_env_steps: int, n_steps: int, reads: int = 3):
-    """Unprofiled median of three runs after a warm-up, then one run under
-    torch.profiler; see the module docstring for the keys.  A profiled
-    run in which the profiler read no device event at all (seen now and
-    then on an H100, torch 2.11) is run again, up to `reads` runs."""
+# A run under torch.profiler that read no device event at all (seen now
+# and then on an H100, torch 2.11: three such runs in a row) is made again,
+# up to this many runs in all.
+PROFILE_RUNS = 5
+
+
+def profiled(fn):
+    """torch.profiler's record of one call of fn (the card synchronized
+    before and after), from the first of up to PROFILE_RUNS calls whose
+    record holds a device event; RuntimeError if none does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILE_RUNS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            return prof
+    raise RuntimeError(f"the profiler read no device event in "
+                       f"{PROFILE_RUNS} runs")
+
+
+def measure(fn, n_env_steps: int, n_steps: int):
+    """Unprofiled median of three runs after a warm-up, then one run under
+    torch.profiler (`profiled`); see the module docstring for the keys."""
+    from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
     walls = []
@@ -133,25 +154,15 @@ def measure(fn, n_env_steps: int, n_steps: int, reads: int = 3):
         fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    for _ in range(reads):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        # device kernels by name; a range the host annotated (the
-        # optimizer's `Optimizer.step`) also shows on the device's
-        # timeline, over the kernels it holds, and is left out
-        agg = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA \
-                    and not getattr(e, "is_user_annotation", False):
-                n, t = agg.get(e.name, (0, 0.0))
-                agg[e.name] = (n + 1, t + e.self_device_time_total)
-        if agg:
-            break
-    else:
-        raise RuntimeError(f"measure: the profiler read no device event "
-                           f"in {reads} runs")
+    # device kernels by name; a range the host annotated (the optimizer's
+    # `Optimizer.step`) also shows on the device's timeline, over the
+    # kernels it holds, and is left out
+    agg = {}
+    for e in profiled(fn).events():
+        if e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
+            n, t = agg.get(e.name, (0, 0.0))
+            agg[e.name] = (n + 1, t + e.self_device_time_total)
     kernels = [(k, n, t) for k, (n, t) in agg.items()]
     return summarize(kernels, sorted(walls)[1], n_env_steps, n_steps)
 

@@ -16,7 +16,8 @@ path is the parameter's name:
     batch_stats['down1']['BatchNorm_0']['mean']
         -> down1.BatchNorm_0.running_mean
 
-Each layout goes by the rule of the torch module that owns the leaf:
+Each layout goes by the rule of the torch module that owns the leaf
+(`_LAYOUTS`, read both ways):
 - `nn.Linear`: a flax `Dense` kernel (in, out) becomes the weight
   (out, in), transposed;
 - `nn.Conv2d`: a flax `Conv` kernel (kh, kw, in, out) becomes the weight
@@ -64,6 +65,27 @@ def _flatten(tree, prefix=""):
 
 
 _NORMS = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+_BN = nn.modules.batchnorm._BatchNorm
+# The layout rules of the module docstring, each written once and read both
+# ways: (owner types, flax leaf, torch leaf, the axes of the flax value
+# flipped, then the permutation that takes it to the torch layout).
+_LAYOUTS = (
+    ((nn.Linear,), "kernel", "weight", (), (1, 0)),
+    ((nn.Conv2d,), "kernel", "weight", (), (3, 2, 0, 1)),
+    ((nn.ConvTranspose2d,), "kernel", "weight", (0, 1), (2, 3, 0, 1)),
+    (_NORMS, "scale", "weight", (), None),
+    ((_BN,), "mean", "running_mean", (), None),
+    ((_BN,), "var", "running_var", (), None),
+)
+
+
+def _layout(owner: Optional[nn.Module], leaf: str, side: int):
+    """The rule of `_LAYOUTS` for a leaf named `leaf` on the flax
+    (side 1) or the torch (side 2) side, or None."""
+    for rule in _LAYOUTS:
+        if rule[side] == leaf and isinstance(owner, rule[0]):
+            return rule
+    return None
 
 
 def _numpy(value) -> np.ndarray:
@@ -79,19 +101,25 @@ def _numpy(value) -> np.ndarray:
 def _carry(owner: Optional[nn.Module], leaf: str, value: np.ndarray):
     """(torch name of the leaf, value in the torch layout) by the rule of
     the module that owns it."""
-    if leaf == "kernel":
-        if isinstance(owner, nn.Linear):
-            return "weight", value.T
-        if isinstance(owner, nn.Conv2d):
-            return "weight", value.transpose(3, 2, 0, 1)
-        if isinstance(owner, nn.ConvTranspose2d):
-            return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
-    if leaf == "scale" and isinstance(owner, _NORMS):
-        return "weight", value
-    if isinstance(owner, nn.modules.batchnorm._BatchNorm) \
-            and leaf in ("mean", "var"):
-        return f"running_{leaf}", value
-    return leaf, value
+    rule = _layout(owner, leaf, 1)
+    if rule is None:
+        return leaf, value
+    _, _, torch_leaf, flip, perm = rule
+    if flip:
+        value = np.flip(value, flip)
+    return torch_leaf, value if perm is None else value.transpose(perm)
+
+
+def _to_flax(owner: Optional[nn.Module], leaf: str, t: torch.Tensor):
+    """The inverse of `_carry`: (flax name of the torch leaf, value in the
+    flax layout)."""
+    rule = _layout(owner, leaf, 2)
+    if rule is None:
+        return leaf, t
+    _, flax_leaf, _, flip, perm = rule
+    if perm is not None:
+        t = t.permute(*np.argsort(perm).tolist())
+    return flax_leaf, t.flip(flip) if flip else t
 
 
 def load_jax_params(module: nn.Module, params: dict,
@@ -149,17 +177,12 @@ def load_jax_params(module: nn.Module, params: dict,
 
 
 def _flax_path(owners: dict, name: str) -> tuple:
-    """The flax tree path of the port's parameter `name` (the inverse of
-    `_carry`'s naming): a Dense/Conv weight is the `kernel`, a norm's
-    weight its `scale`.  Factor lists are not carried (the PINO models'
-    weights are dense)."""
+    """The flax tree path of the port's parameter or BatchNorm statistic
+    `name` (`_carry`'s naming read backwards).  Factor lists are not
+    carried (the PINO models' weights are dense)."""
     prefix, _, leaf = name.rpartition(".")
-    owner = owners.get(prefix)
-    if leaf == "weight" and isinstance(owner, (nn.Linear, nn.Conv2d,
-                                               nn.ConvTranspose2d)):
-        leaf = "kernel"
-    elif leaf == "weight" and isinstance(owner, _NORMS):
-        leaf = "scale"
+    rule = _layout(owners.get(prefix), leaf, 2)
+    leaf = leaf if rule is None else rule[1]
     return (*prefix.split("."), leaf) if prefix else (leaf,)
 
 
@@ -191,16 +214,8 @@ def jax_params(module: nn.Module):
     owners = dict(module.named_modules())
 
     def value(name, t):
-        prefix = name.rpartition(".")[0]
-        owner = owners.get(prefix)
-        t = t.detach().cpu()
-        if name.endswith(".weight") or name == "weight":
-            if isinstance(owner, nn.Linear):
-                t = t.T
-            elif isinstance(owner, nn.Conv2d):
-                t = t.permute(2, 3, 1, 0)
-            elif isinstance(owner, nn.ConvTranspose2d):
-                t = t.permute(2, 3, 0, 1).flip(0, 1)
+        prefix, _, leaf = name.rpartition(".")
+        t = _to_flax(owners.get(prefix), leaf, t.detach().cpu())[1]
         t = t.contiguous()
         return t if t.dtype == torch.bfloat16 else t.numpy()
 
@@ -210,10 +225,8 @@ def jax_params(module: nn.Module):
              if n.endswith(("running_mean", "running_var"))]
     if not stats:
         return params, None
-    return params, _tree(
-        ((*n.rpartition(".")[0].split("."),
-          n.rpartition("_")[2]), b.detach().cpu().numpy())
-        for n, b in stats)
+    return params, _tree((_flax_path(owners, n), value(n, b))
+                         for n, b in stats)
 
 
 def jax_leaf_order(module: nn.Module) -> list:
