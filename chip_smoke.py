@@ -45,8 +45,14 @@ result):
      (B 1, 32 x 17 spectrum, 2 x 6 x 6 modes, I = O = 32), its training
      batch (B 20), the legacy weight layout, ragged and wide shapes:
      forward, the gradient to x (the adjoint entry) and the gradients
-     through its autograd Function; the strided entry behind
-     `corner_contract` at its four shapes with its gradients;
+     through its autograd Function (dw through the weight-gradient entry,
+     one launch a conv); the weight-gradient entry against its plain
+     version at the FNO's and RNO's training shapes, the dense UNO's five
+     blocks, the patch shape (B 80), B 1, B 64 with I = O = 64, ragged and
+     wide shapes, each corner alone and both, contiguous and
+     channels-first spectra (autograd's layout), bit for bit across all
+     of these and between two calls; the strided entry behind `corner_contract` at its four shapes
+     with its gradients;
      the same at the RNO's (I = O = 34, two 12 x 12 corners, B 1 and 32),
      the UNet's (64 -> 32) and the transformer regressor's (96 -> 48,
      48 -> 48 on B x T = 2 and 40 planes) shapes;
@@ -90,13 +96,15 @@ result):
      base_transformer.yaml (3 epochs, ntrain / ntest cut to the dataset,
      every width as configured): the train loss finite and falling, the
      checkpoint reloaded to the same test loss bit for bit, and exactly
-     (forward, adjoint, strided) = (F, F, 2F) corner launches per training
-     step and F per evaluation step (F = 4, 28, 3); one training step of
+     (forward, adjoint, strided, weight gradient) = (F, F, 0, F) corner
+     launches per training step and F forward launches per evaluation
+     step (F = 4, 28, 3); one training step of
      FNO at B 20 and of RNO at B 32 on the kernel route against the plain
      route (loss <= 1e-6, every parameter gradient rel L2 <= 1e-5).  The
-     backward entries (the fused entry's adjoint, the strided entry) are
-     held and timed at those two training shapes in phase 3, beside their
-     bounds and one `einsum`;
+     backward entries (the fused entry's adjoint, the weight-gradient
+     entry, and the strided entry that took dw before it) are held and
+     timed at those two training shapes in phase 3, beside their bounds
+     and one `einsum`;
   9. the flagship gradient-control slice: a 64-step `gt` dataset with its
      U, V, W fields, run_pde_observers.main on
      configs/fullfield_pi_short.yaml (the full-width PINObserverFullField,
@@ -139,7 +147,7 @@ result):
      1500, C 500), env-steps/s of both; `Trainer(mesh)` against
      `Trainer()` for one epoch of FNO2dObserver(12, 12, 32) at batch 20 on
      400 planes (parameters within 1e-6, ms a step, the gradient
-     all-reduce alone, exactly (84, 80, 160) corner launches); the
+     all-reduce alone, exactly (84, 80, 0, 80) corner launches); the
      patched Trainer (levels 1, padding 0.25, 32x32 planes) and the fused
      corner entry at its patch shape against its plain version (2e-6);
      `sharded_step` at 32x130x32 against `_rk3_step_unfused` on the card
@@ -153,10 +161,10 @@ result):
      U (5 layers, channels [32, 64, 64, 64, 32], scalings [1, 0.5, 1, 2,
      1]) at B 20 of 32 x 32, dense through the corner kernel against its
      plain route (forward and gradients at 1e-5; exactly one forward
-     launch a block by hooks on the blocks, (5, 5, 10) a forward and
+     launch a block by hooks on the blocks, (5, 5, 0, 5) a forward and
      backward) and Tucker on the plain route (no launch); the fused entry
      at each block's shape against its plain version, timed beside its
-     bound; the transformer with a GCN and a GAT lift on (2, 2, 32, 32, 1)
+     bound and one `einsum` on the gathered corners; the transformer with a GCN and a GAT lift on (2, 2, 32, 32, 1)
      with the grid's Laplacian as edge, kernel against plain at 1e-5 and
      3 launches a forward; the 2-D env in float64 on the card against the
      CPU (the fresh solve and five fix_flow steps at 1e-10 with the
@@ -404,11 +412,12 @@ def zoo_phase(dev, smi, h):
           abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()), 1e-5)
     check("UNO dense forward and backward: worst parameter gradient",
           max(rel(a, b) for a, b in zip(g_k, g_p)), 1e-5)
-    if fwd != (5, 0, 0) or per_block != [1] * 5 or train != (5, 5, 10):
+    if fwd != (5, 0, 0, 0) or per_block != [1] * 5 \
+            or train != (5, 5, 0, 5):
         FAILED.append(f"UNO dense: corner launches (forward, adjoint, "
-                      f"strided) {fwd} a forward ({per_block} a block), "
-                      f"{train} a forward and backward; expected (5, 0, 0), "
-                      "one a block, (5, 5, 10)")
+                      f"strided, dw) {fwd} a forward ({per_block} a block), "
+                      f"{train} a forward and backward; expected (5, 0, 0, "
+                      "0), one a block, (5, 5, 0, 5)")
     uno_ms = {b: cuda_ms(lambda m=m: grads(m, x), reps=10)
               for b, m in uno.items()}
     with torch.no_grad():
@@ -420,7 +429,7 @@ def zoo_phase(dev, smi, h):
         y_t = tucker(x)
     loss_t, g_t = grads(tucker, x)
     tucker_counts = counts()
-    if tucker_counts != (0, 0, 0) or not (
+    if tucker_counts != (0, 0, 0, 0) or not (
             torch.isfinite(y_t).all()
             and all(torch.isfinite(g).all() for g in g_t)):
         FAILED.append(f"UNO Tucker: corner launches {tucker_counts}, "
@@ -448,11 +457,17 @@ def zoo_phase(dev, smi, h):
 
         def fk(xf=x_ft, vs=views):
             return sc.spectral_corners_kernel(xf, *vs)
+        m1, m2 = modes
+        corners = torch.cat([x_ft[:, :m1, :m2], x_ft[:, -m1:, :m2]], 1)
+        w_c = torch.complex(*(torch.cat([v[i] for v in views])
+                              for i in (0, 1)))
         per_shape[name] = dict(
             shape=shape, ms=cuda_ms(fk),
             device_us=device_us(fk, ("spectral_corners",))[0],
             plain_ms=cuda_ms(lambda xf=x_ft, w=ws, m=modes:
                              sc.spectral_corners_plain(xf, w, m)),
+            library_ms=cuda_ms(lambda c=corners, w=w_c: torch.einsum(
+                "brmi,rmio->brmo", c, w)),
             bound_ms=b_ms, bound_by=b_by)
         log(f"  corner entry at {name}: {per_shape[name]}")
     out["uno"] = dict(forward=fwd, per_block=per_block, training=train,
@@ -475,9 +490,9 @@ def zoo_phase(dev, smi, h):
         check(f"transformer ({kind}, N 2048, edge (2, 2048, 2048)): kernel "
               "route against plain route",
               rel(o_k, ms["plain"](xg, edge=edge)), 1e-5)
-        if got != (3, 0, 0):
+        if got != (3, 0, 0, 0):
             FAILED.append(f"transformer {kind}: corner launches {got} a "
-                          "forward, expected (3, 0, 0)")
+                          "forward, expected (3, 0, 0, 0)")
         graph[kind] = dict(launches=got, ms=cuda_ms(
             lambda m=ms["auto"]: m(xg, edge=edge), reps=5))
         log(f"  transformer {kind}: {graph[kind]}  ({smi})")
@@ -1782,7 +1797,7 @@ def main() -> int:
         return torch.autograd.grad((or_ ** 2).sum() + (or_ * oi_).sum(), args)
 
     serving, training = (12, 1, 6, 32, 32), (12, 20, 6, 32, 32)
-    log("  the strided entry behind corner_contract (the weight gradient)")
+    log("  the strided entry behind corner_contract (its own VJP included)")
     # one fp32 sum of <= 64 terms taken in another order
     strided = {}
     for tag, shape in (("serving B=1", serving), ("training B=20", training),
@@ -1890,13 +1905,16 @@ def main() -> int:
             FAILED.append(f"fused corners {tag}: zeros are not where the "
                           "plain version has them")
         n0 = (sc.spectral_corners_kernel.launches,
-              sc.corner_contract_kernel.launches)
+              sc.corner_contract_kernel.launches,
+              sc.spectral_corners_dw_kernel.launches)
         g_k = spec_grads(sc.spectral_corners, x_ft, ws, modes)
         n1 = (sc.spectral_corners_kernel.launches - n0[0],
-              sc.corner_contract_kernel.launches - n0[1])
-        if n1 != (2, 2):
+              sc.corner_contract_kernel.launches - n0[1],
+              sc.spectral_corners_dw_kernel.launches - n0[2])
+        if n1 != (2, 0, 1):
             FAILED.append(f"fused corners {tag}: forward + dx should be 2 "
-                          f"launches and dw 2 of the strided entry, got {n1}")
+                          "launches of the fused entry, none of the strided "
+                          f"entry and dw one of the dw entry, got {n1}")
         g_p = spec_grads(sc.spectral_corners_plain, x_ft, ws, modes)
         for nm, a, b in zip(("dx", "dw low", "dw high"), g_k, g_p):
             check(f"fused corners {tag}: {nm} through the Function",
@@ -1928,21 +1946,63 @@ def main() -> int:
         report["corner_contract"].update(
             {f"strided_entry_{k}{sfx}": v for k, v in r.items()})
 
+    log("  the weight-gradient entry: both corners' dw = conj(x)^T dout in "
+        "one launch, from the two spectra")
+    # one fp32 sum of B terms a gradient entry, taken in another order
+    dw_shapes = {"FNO training B=20": spec_training,
+                 "RNO training B=32": spec_rno_training,
+                 **{f"UNO {k}": v for k, v in UNO_CORNER_SHAPES.items()},
+                 "patch B=80": (80, Nx, Wh, 32, 32, 12, 12),
+                 "B=1": spec_serving,
+                 "B=64, I = O = 64": (64, Nx, Wh, 64, 64, 12, 12),
+                 "ragged": (3, 9, 5, 5, 6, 4, 3),
+                 "ragged, odd widths, B=37": (37, 9, 5, 7, 5, 3, 5),
+                 "wide": (2, 16, 9, 200, 300, 3, 4),
+                 "all ones": (1, 2, 1, 1, 1, 1, 1)}
+    n0 = sc.spectral_corners_dw_kernel.launches
+    for tag, shape in dw_shapes.items():
+        m1, m2 = shape[5:]
+        x_ft, d_ft, _ = spec_inputs(*shape, False)
+        got = sc.spectral_corners_dw_kernel(x_ft, d_ft, m1, m2)
+        again = sc.spectral_corners_dw_kernel(x_ft, d_ft, m1, m2)
+        alone = [sc.spectral_corners_dw_kernel(x_ft, d_ft, m1, m2, want)[c]
+                 for c, want in enumerate(((True, False), (False, True)))]
+        # the layout the backward reads in place: x_ft channels-first (as
+        # rfftn leaves it), dout too where no gradient to x asked for a copy
+        first = sc.spectral_corners_dw_kernel(
+            *(a.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+              for a in (x_ft, d_ft)), m1, m2)
+        torch.cuda.synchronize()
+        ref = sc.spectral_corners_dw_plain(x_ft, d_ft, m1, m2)
+        check(f"dw entry {tag} {shape}",
+              rel(torch.stack(got), torch.stack(ref)), 2e-6)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)) or \
+                not all(torch.equal(a, b) for a, b in zip(got, alone)) or \
+                not all(torch.equal(a, b) for a, b in zip(got, first)):
+            FAILED.append(f"dw entry {tag}: two calls, each corner alone "
+                          "or channels-first spectra against both corners "
+                          "of contiguous ones, are not the same bit for bit")
+    if sc.spectral_corners_dw_kernel.launches != n0 + 5 * len(dw_shapes):
+        FAILED.append("dw entry: not one launch a call")
+
     log("  the backward entries at the training shapes (FNO B 20, RNO B 32)")
 
     def backward_entries(shape):
         """The gradient to x (the fused entry's adjoint: the corners of
-        dout in, the whole dx spectrum out) and one corner's weight
-        gradient conj(x)^T dout (the strided entry, the channel axis in
-        the batch role), each against its plain version, timed by CUDA
-        events and by the profiler's device time, beside its bound
-        (counted as `spec_work` counts: 8 bytes a complex64, 8
+        dout in, the whole dx spectrum out), both corners' weight gradients
+        conj(x)^T dout (the weight-gradient entry, one launch) and, as the
+        backward took them before it, one corner's (the strided entry, the
+        channel axis in the batch role), each against its plain version,
+        timed by CUDA events and by the profiler's device time, beside its
+        bound (counted as `spec_work` counts: 8 bytes a complex64, 8
         operations a complex multiply-add) and one `einsum` on the
         gathered corners."""
         B, H, Wc, I, O, m1, m2 = shape
         x_ft, d_ft, ws = spec_inputs(*shape, False)
         views = sc._dense_views(ws)
         d_c = torch.cat([d_ft[:, :m1, :m2], d_ft[:, -m1:, :m2]], 1)
+        x_cc = torch.cat([x_ft[:, :m1, :m2], x_ft[:, -m1:, :m2]],
+                         1).conj().resolve_conj()
         w_c = torch.complex(*(torch.cat([v[i] for v in views])
                               for i in (0, 1)))
         xb, db = x_ft[:, :m1, :m2], d_ft[:, :m1, :m2]
@@ -1956,6 +2016,13 @@ def main() -> int:
                     d_ft, [sc._adjoint_weight(v) for v in views], (m1, m2)),
                 lambda: torch.einsum("brmo,rmio->brmi", d_c, w_c.conj()),
                 spec_work(B, H, Wc, O, I, m1, m2), "spectral_corners"),
+            "dw": (
+                lambda: sc.spectral_corners_dw_kernel(x_ft, d_ft, m1, m2),
+                lambda: sc.spectral_corners_dw_plain(x_ft, d_ft, m1, m2),
+                lambda: torch.einsum("bhwi,bhwo->hwio", x_cc, d_c),
+                (8 * B * 2 * m1 * m2 * I * O,
+                 8 * (B * 2 * m1 * m2 * (I + O) + 2 * m1 * m2 * I * O)),
+                "corners_dw"),
             "strided": (
                 lambda: sc.corner_contract_kernel(*args, conj_x=True),
                 lambda: sc.corner_contract_plain(args[0], -args[1], *args[2:]),
@@ -1965,7 +2032,7 @@ def main() -> int:
                 "corner_contract")}
         out = {}
         for nm, (fk, fp, fl, fb, kname) in fns.items():
-            got, want = (torch.stack(a) if isinstance(a, tuple)
+            got, want = (torch.stack(a) if isinstance(a, (tuple, list))
                          else torch.view_as_real(a) for a in (fk(), fp()))
             check(f"{nm} entry at {shape}", rel(got, want), 2e-6)
             b_ms, b_by = bound(*fb)
@@ -1978,9 +2045,22 @@ def main() -> int:
             log(f"  {nm} at B={B}, I={I}, O={O}, {m1}x{m2}: {out[nm]}")
         return out
 
-    report["corner_contract"]["backward_entries"] = {
+    report["corner_contract"]["backward_entries"] = bw = {
         "fno_b20": backward_entries(spec_training),
         "rno_b32": backward_entries(spec_rno_training)}
+    # the weight-gradient entry's row of the kernels line: RNO B 32, the
+    # FNO's B 20 beside it; its launches are phase 8's
+    report["corner_dw"] = dict(
+        name="corner_dw", route="cuda",
+        source="pde_policylearning_torch/csrc/corner_contract.cu",
+        replaces="pde_policylearning_tpu/ops/pallas_kernels.py:109",
+        shape=spec_rno_training,
+        **{k: bw["rno_b32"]["dw"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_us", "operations", "bytes")},
+        **{f"{k}_fno_b20": bw["fno_b20"]["dw"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "device_us")})
 
     log("spectral_conv_nd and FNO2dObserver(12, 12, 32): kernel route "
         "against plain route")
@@ -2016,7 +2096,7 @@ def main() -> int:
               1e-5)
 
     # training: the gradients to x and to the stored weights through the
-    # conv, kernel route (dx fused entry, dw strided entry) against plain
+    # conv, kernel route (dx fused entry, dw the weight-gradient entry)
     def conv_grads(backend):
         xg = xb.clone().requires_grad_()
         leaves = [v.detach().clone().requires_grad_() for w in ws
@@ -2241,7 +2321,8 @@ def main() -> int:
         for i in range(4):
             torch.cuda.synchronize()
             for fn in (*every.values(), sc.spectral_corners_kernel,
-                       sc.corner_contract_kernel):
+                       sc.corner_contract_kernel,
+                       sc.spectral_corners_dw_kernel):
                 fn.launches = 0
             t0 = time.perf_counter()
             res = run_closed_loop(env, policy, n_steps=n_pol,
@@ -2255,12 +2336,13 @@ def main() -> int:
                 actions = res["opV2"]      # the warm-up run's planes
             got = (sc.spectral_corners_kernel.launches,
                    rk.env_step_full_kb_kernel.launches,
-                   sc.corner_contract_kernel.launches)
-            if got != (per_step * n_pol, n_pol, 0):
+                   sc.corner_contract_kernel.launches,
+                   sc.spectral_corners_dw_kernel.launches)
+            if got != (per_step * n_pol, n_pol, 0, 0):
                 raise AssertionError(
                     f"{name}: (fused corner entry, kernel D, strided corner "
-                    f"entry) launches {got} over {n_pol} steps, expected "
-                    f"{(per_step * n_pol, n_pol, 0)}")
+                    f"entry, dw entry) launches {got} over {n_pol} steps, "
+                    f"expected {(per_step * n_pol, n_pol, 0, 0)}")
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
                     raise AssertionError(f"{name}: non-finite {k}")
@@ -2276,19 +2358,20 @@ def main() -> int:
             raise AssertionError(f"{name}: actuation has a net flux {flux}")
         policy_runs[name] = got[0]
 
-    corner, strided_entry = sc.spectral_corners_kernel, \
-        sc.corner_contract_kernel
+    corner, strided_entry, dw_entry = sc.spectral_corners_kernel, \
+        sc.corner_contract_kernel, sc.spectral_corners_dw_kernel
 
     def zero_counts():
-        for fn in (*every.values(), corner, strided_entry):
+        for fn in (*every.values(), corner, strided_entry, dw_entry):
             fn.launches = 0
         corner.adjoint_launches = 0
 
     def corner_counts():
-        """(forward, adjoint, strided) launches of the corner kernel's
+        """(forward, adjoint, strided, dw) launches of the corner kernel's
         entries since `zero_counts`."""
         return (corner.launches - corner.adjoint_launches,
-                corner.adjoint_launches, strided_entry.launches)
+                corner.adjoint_launches, strided_entry.launches,
+                dw_entry.launches)
 
     # 7. the observer zoo serving -------------------------------------------
     log(f"{elapsed()} observer zoo at full width, seeded: "
@@ -2318,10 +2401,10 @@ def main() -> int:
         zero_counts()
         out_k = model_k(x)
         got = corner_counts()
-        if got != (per_forward, 0, 0):
+        if got != (per_forward, 0, 0, 0):
             FAILED.append(f"{name} forward: corner launches (forward, "
-                          f"adjoint, strided) {got}, expected "
-                          f"{(per_forward, 0, 0)}")
+                          f"adjoint, strided, dw) {got}, expected "
+                          f"{(per_forward, 0, 0, 0)}")
         check(f"{name} forward {tuple(out_k.shape)}, kernel route against "
               "plain route", rel(out_k, model_p(x)), 1e-5)
         served[name] = model_k
@@ -2348,10 +2431,11 @@ def main() -> int:
             else:
                 actions = res["opV2"]
             got = (*corner_counts(), rk.env_step_full_kb_kernel.launches)
-            want = (per_step * n_pol, 0, 0, n_pol)
+            want = (per_step * n_pol, 0, 0, 0, n_pol)
             if got != want:
                 raise AssertionError(
-                    f"{name}: (corner forward, adjoint, strided, kernel D) "
+                    f"{name}: (corner forward, adjoint, strided, dw, kernel "
+                    "D) "
                     f"launches {got} over {n_pol} steps, expected {want}")
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
@@ -2407,10 +2491,10 @@ def main() -> int:
             dt = time.perf_counter() - t0
             got = corner_counts()
             want = (epochs * (steps + test_steps) * per_step,
-                    epochs * steps * per_step, epochs * steps * 2 * per_step)
+                    epochs * steps * per_step, 0, epochs * steps * per_step)
             if got != want:
                 FAILED.append(f"{name}: corner launches (forward, adjoint, "
-                              f"strided) {got}, expected {want}")
+                              f"strided, dw) {got}, expected {want}")
             tr, te = hist["train_loss"], hist["test_loss"]
             if not (np.isfinite(tr + te).all() and tr[-1] < tr[0]):
                 FAILED.append(f"{name}: train loss {tr} does not fall")
@@ -2422,15 +2506,15 @@ def main() -> int:
                 FAILED.append(f"{name}: the checkpoint reloads to test loss "
                               f"{again!r}, training read {hist['best_loss']!r}")
             trained[args.model_name] = dict(
-                forward=got[0], adjoint=got[1], strided=got[2],
-                per_training_step=(per_step, per_step, 2 * per_step),
+                forward=got[0], adjoint=got[1], strided=got[2], dw=got[3],
+                per_training_step=(per_step, per_step, 0, per_step),
                 steps=epochs * steps, train_loss=tr, test_loss=te,
                 ms_per_epoch=[1e3 * t for t in hist["epoch_time"]],
                 seconds=dt)
             log(f"  {args.model_name}: {steps} steps of {bs} an epoch, "
                 f"train {tr}, test {te}, best {hist['best_loss']!r} "
                 f"(reloaded {again!r}); {dt:.1f} s; corner launches "
-                f"(forward, adjoint, strided) {got}  ({smi})")
+                f"(forward, adjoint, strided, dw) {got}  ({smi})")
 
         # one training step on the kernel route against the plain route
         for name, B in (("base_fno.yaml", 20), ("matlab_rno.yaml", 32)):
@@ -2529,11 +2613,11 @@ def main() -> int:
                 actions = res["opV2"]
             got = (rk.env_step_full_kb_kernel.launches - n0,
                    *(b - a for a, b in zip(c0, corner_counts())))
-            if got != (n_pol, 0, 0, 0):
+            if got != (n_pol, 0, 0, 0, 0):
                 raise AssertionError(
-                    f"{name}: (kernel D, corner forward, adjoint, strided) "
-                    f"launches {got} over {n_pol} steps, expected "
-                    f"{(n_pol, 0, 0, 0)}")
+                    f"{name}: (kernel D, corner forward, adjoint, strided, "
+                    f"dw) launches {got} over {n_pol} steps, expected "
+                    f"{(n_pol, 0, 0, 0, 0)}")
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
                     raise AssertionError(f"{name}: non-finite {k}")
@@ -3065,16 +3149,16 @@ def main() -> int:
         check("parallel: Trainer(mesh) at world size 1 against Trainer(), "
               "one epoch of FNO2dObserver(12, 12, 32) at batch 20: worst "
               "parameter", worst, 1e-6)
-        want = (20 * 4 + 4, 20 * 4, 20 * 8)
+        want = (20 * 4 + 4, 20 * 4, 0, 20 * 4)
         for name, (_, _, got, env, tally) in dp_train.items():
             if got != want or any(env.values()) or tally["steps"] != 20:
                 FAILED.append(f"parallel: {name} corner launches (forward, "
-                              f"adjoint, strided) {got}, expected {want}; "
+                              f"adjoint, strided, dw) {got}, expected {want}; "
                               f"env kernels {env}, expected none; "
                               f"{tally['steps']} training steps, expected 20")
         got, _, tally = dp_train["Trainer(mesh)"][2:]
         dp_per_step = (tally["train_forward"] / tally["steps"],
-                       got[1] / tally["steps"], got[2] / tally["steps"])
+                       *(n / tally["steps"] for n in got[1:]))
         m = dp_train["Trainer(mesh)"][1]
         (m(xs[:20]) ** 2).mean().backward()
         params = list(m.parameters())
@@ -3083,7 +3167,8 @@ def main() -> int:
         log(f"  Trainer: ms a training step (one evaluation batch an epoch "
             f"included) {json.dumps(dp_training)}; the gradient all-reduce "
             f"alone {allreduce_ms:.4f} ms ({sum(p.numel() for p in params)} "
-            f"parameters); corner launches (forward, adjoint, strided) an "
+            f"parameters); corner launches (forward, adjoint, strided, dw) "
+            "an "
             f"epoch {dp_train['Trainer(mesh)'][2]}, a training step "
             f"{dp_per_step} over {tally['steps']} training steps  ({smi})")
 
@@ -3098,7 +3183,7 @@ def main() -> int:
             (xs[:40], ys[:40]), te_d)
         torch.cuda.synchronize()
         patched = corner_counts()
-        if patched != (3 * 4, 2 * 4, 2 * 8) or not np.isfinite(
+        if patched != (3 * 4, 2 * 4, 0, 2 * 4) or not np.isfinite(
                 ph["train_loss"] + ph["test_loss"]).all():
             FAILED.append(f"parallel: the patched Trainer launched {patched} "
                           f"corner entries, losses {ph}")
@@ -3123,7 +3208,8 @@ def main() -> int:
                                        pshape[5:])):
             check(f"parallel: fused corners at the patch shape: {nm} "
                   "through the Function", rel(cre(a), cre(b)), 2e-6)
-        log(f"  patched Trainer: corner launches (forward, adjoint, strided) "
+        log(f"  patched Trainer: corner launches (forward, adjoint, strided, "
+            "dw) "
             f"{patched} over 2 steps and 1 evaluation batch; losses {ph}")
 
         # the x-sharded step at the full grid against the unsharded step
@@ -3216,17 +3302,23 @@ def main() -> int:
         report[k]["launches_data_parallel"] = sum(
             c[k] for c in dp_launches.values())
         report[k]["launches_dp_training"] = dp_train["Trainer(mesh)"][3][k]
+    entries = ("forward", "adjoint", "strided", "dw")
     report["corner_contract"]["launches_data_parallel"] = dict(
-        zip(("forward", "adjoint", "strided"),
-            map(sum, zip(*dp_corner.values()))))
+        zip(entries, map(sum, zip(*dp_corner.values()))))
     report["corner_contract"]["launches_dp_training"] = dict(
-        zip(("forward", "adjoint", "strided"), dp_train["Trainer(mesh)"][2]),
+        zip(entries, dp_train["Trainer(mesh)"][2]),
         per_training_step=dp_per_step,
         steps=dp_train["Trainer(mesh)"][4]["steps"])
     report["corner_contract"]["launches_training"] = {
-        k: {n: v[n] for n in ("forward", "adjoint", "strided",
-                               "per_training_step", "steps")}
+        k: {n: v[n] for n in (*entries, "per_training_step", "steps")}
         for k, v in trained.items()}
+    # the weight-gradient entry on the training paths: phase 8's three
+    # configs (the kernels line's count), Trainer(mesh), the dense UNO
+    report["corner_dw"].update(
+        launches=sum(v["dw"] for v in trained.values()),
+        launches_training={k: v["dw"] for k, v in trained.items()},
+        launches_dp_training=dp_train["Trainer(mesh)"][2][3],
+        launches_uno_forward_backward=zoo["uno"]["training"][3])
     # phase 13: the dense UNO (a forward, a forward and backward), the
     # Tucker UNO (forward and backward), the graph transformers (a forward),
     # read in the run; the entry at each UNO block's shape
@@ -3239,7 +3331,7 @@ def main() -> int:
            for k, v in zoo["graph"].items()})
     report["corner_contract"]["uno_shapes"] = zoo["uno"]["per_shape"]
     print(json.dumps({"kernels": [report[k] for k in
-                                  (*every, "corner_contract")]}))
+                                  (*every, "corner_contract", "corner_dw")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

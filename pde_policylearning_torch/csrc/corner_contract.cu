@@ -41,11 +41,14 @@
 // the zeros with 8-byte stores.  Every edge is masked: any B, H, Wh, m1,
 // m2, I, O >= 1 with 2 m1 <= H and m2 <= Wh.
 //
+// `pde_spectral_corners_dw` is the weight gradient of that step, both
+// corners in one launch, straight from the two interleaved spectra (note
+// above the entry).
+//
 // `pde_corner_contract` is the earlier entry on split real and imaginary
-// arrays with element strides and a sign per imaginary part.  It stays for
-// the weight gradient dw = conj(x)^T dout (the channel axis in the batch
-// role, B the contraction length) and behind the public
-// `corner_contract(xr, xi, wr, wi)`:
+// arrays with element strides and a sign per imaginary part.  It stays
+// only behind the JAX-named `corner_contract(xr, xi, wr, wi)` and that
+// function's own VJP:
 //   or[r,b,j,o] = sum_i xr[r,b,j,i] wr[r,j,i,o] - xi[r,b,j,i] wi[r,j,i,o]
 //   oi[r,b,j,o] = sum_i xr[r,b,j,i] wi[r,j,i,o] + xi[r,b,j,i] wr[r,j,i,o]
 // with xr, xi (R, B, M2, I), wr, wi (R, M2, I, O), or, oi (R, B, M2, O).
@@ -292,5 +295,282 @@ extern "C" int pde_spectral_corners(const SpectralDims* d, const float* x,
       *d, (int)n_prod, o_tiles, b_tiles, pow2, vec, fast_i,
       reinterpret_cast<const float2*>(x), wr0, wi0, wr1, wi1,
       reinterpret_cast<float2*>(out));
+  return cudaGetLastError();
+}
+
+// The weight gradient of `pde_spectral_corners`, both corners in one launch:
+//   dw[c][kx, ky, i, o] = sum_b conj(x[b, h, ky, i]) dout[b, h, ky, o]
+// with h = kx for the low corner (c = 0) and H - m1 + kx for the high one,
+// written as each corner's (2, m1, m2, I, O) real and imaginary blocks (the
+// shape of the weight views the autograd Function is handed); nothing else.
+//
+// Replaces: the dw half of the VJP of pallas_kernels.py:
+// _corner_contract_kernel (:96-113), there the same kernel run with the
+// channel axis in the batch role.  The strided entry above did that here
+// too, reading the contraction axis B across the spectrum's batch stride.
+//
+// Bound: bytes.  Per mode (B I + B O) complex inputs and I O complex
+// outputs against 4 B I O FMAs: at the RNO's training shape (B 32, I = O =
+// 34, 288 modes) 7.68 MB and 42.6 M FMAs, 2.29 us at 3.35 TB/s against
+// 1.27 us at 67 TFLOP/s.  These are per-mode products of at most 64 x 64
+// over a depth of B, in fp32 FMA: no TF32 and no tensor cores, whose
+// `wgmma` tiles (64 rows, fed from shared memory) these few bytes a mode
+// could not keep busy.
+//
+// Design.  A block owns one mode of the corners asked for and one tile of
+// at most kDwMaxTile x kDwMaxTile (i, o) channels.  It stages the mode's
+// x[b, h, ky, i-tile] and dout[b, h, ky, o-tile] rows in shared memory by
+// cp.async, kDwMaxRows batch rows a chunk at most (two buffers when B
+// takes more than one chunk, the next chunk's copies in flight while this
+// one is summed: any B fits).  The spectra are read through their element
+// strides: a spectrum contiguous along the channels (even strides, 16-byte
+// aligned) 16 bytes a thread, any other in place 8 bytes a value (rfftn
+// and autograd leave spectra channels-first, channel stride H Wh; the
+// Function hands this entry the contiguous copies the fused entry reads
+// where there are any).  Each thread keeps a kDwRegI x kDwRegO (4 x 2)
+// register tile of complex (i, o) sums over b, 32 FMAs a row for three
+// 16-byte shared reads; a warp's lanes run along o, so the dout reads are
+// consecutive 16-byte words, the x reads broadcasts, and the stores
+// 8-byte pairs where O and the tile are even.  The tiles are balanced over
+// the channels (I = 34 is one 34-wide tile, 9 x 17 threads in 5 warps, not
+// two 32-wide tiles of which one is 2 wide), and split again, the wider
+// axis first, while the blocks are fewer than the SMs (the FNO's 72 modes
+// at I = O = 32 take 144 blocks of 32 x 16).  The batch is never split
+// across blocks: every sum is taken by one thread in b order, so the
+// result is the same bit for bit from run to run, for any tiling and any
+// layout, with no atomics and no second pass.  Every edge is masked: any
+// B, H, Wh, I, O >= 1 with 2 m1 <= H and m2 <= Wh.  On an H100 the sums,
+// not the copies or the stores, take most of the time; a 2 x 2 tile, or
+// commit groups of 8 rows waited for one by one, were slower (PERF.md).
+struct CornerDwDims {
+  int B, H, Wh, I, O, m1, m2;
+  int want[2];       // nonzero: write that corner's gradient (0 low, 1 high)
+  long long xs[4];   // complex element strides of x over (b, h, ky, i)
+  long long ds[4];   // and of dout over (b, h, ky, o)
+};
+
+namespace {
+
+// kDwRegI x kDwRegO: each thread's register tile of complex (i, o) sums
+constexpr int kDwMaxTile = 64, kDwMaxRows = 32, kDwSmemBytes = 48 * 1024,
+              kDwRegI = 4, kDwRegO = 2;
+static_assert(kDwRegI % 2 == 0 && kDwRegO % 2 == 0,
+              "register tiles are read 16 bytes (two complex) at a time");
+
+// the tile padded to whole register tiles (so an even pitch: 16-byte rows)
+__host__ __device__ constexpr int dw_pitch(int t, int reg) {
+  return (t + reg - 1) / reg * reg;
+}
+
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float2* dst, const float2* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// rows [0, nb) of a chunk: row b of `src` starts `stride` complex values
+// after row b - 1, its channels `step` apart; `width` live channels land
+// at dst + b * pitch.  The copies are issued, not waited for.
+__device__ __forceinline__ void stage_rows(float2* dst, const float2* src,
+                                           long long stride, long long step,
+                                           int nb, int width, int pitch,
+                                           int vec) {
+  if (vec) {                       // step 1, width even, 16-byte aligned
+    const int pairs = width >> 1;
+    for (int e = threadIdx.x; e < nb * pairs; e += blockDim.x) {
+      const int b = e / pairs, p = 2 * (e - b * pairs);
+      cp_async16(dst + b * pitch + p, src + b * stride + p);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nb * width; e += blockDim.x) {
+      const int b = e / width, c = e - b * width;
+      cp_async8(dst + b * pitch + c, src + b * stride + c * step);
+    }
+  }
+}
+
+// Blocks decode as (row of the corners asked for, ky, i tile, o tile), the
+// o tile fastest, so the blocks of one mode run side by side.
+__global__ void __launch_bounds__(1024)
+corners_dw_kernel(CornerDwDims d, int c_first, int i_tiles, int o_tiles,
+                  int tI, int tO, int kb, int vec_x, int vec_d, int vec_o,
+                  const float2* __restrict__ x,
+                  const float2* __restrict__ dout, float* __restrict__ out0,
+                  float* __restrict__ out1) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int pI = dw_pitch(tI, kDwRegI), pO = dw_pitch(tO, kDwRegO);
+  int id = blockIdx.x;
+  const int ot = id % o_tiles;
+  id /= o_tiles;
+  const int it = id % i_tiles;
+  id /= i_tiles;
+  const int ky = id % d.m2, r = id / d.m2;
+  const int corner = c_first + r / d.m1, kx = r % d.m1;
+  const int h = corner ? d.H - d.m1 + kx : kx;
+  const int i0 = it * tI, o0 = ot * tO;
+  const int wI = min(tI, d.I - i0), wO = min(tO, d.O - o0);  // live widths
+  const int nchunks = (d.B + kb - 1) / kb, nbuf = nchunks > 1 ? 2 : 1;
+  float2* sx = smem;                     // [nbuf][kb][pI]
+  float2* sd = smem + nbuf * kb * pI;    // [nbuf][kb][pO]
+  const float2* xs = x + h * d.xs[1] + ky * d.xs[2] + i0 * d.xs[3];
+  const float2* ds = dout + h * d.ds[1] + ky * d.ds[2] + o0 * d.ds[3];
+  const int nto = (tO + kDwRegO - 1) / kDwRegO;
+  const int ti = threadIdx.x / nto, to = threadIdx.x - ti * nto;
+  const int ia = kDwRegI * ti, oa = kDwRegO * to;  // the tile's first i, o
+  const bool live = ia < wI && oa < wO;
+
+  float re[kDwRegI][kDwRegO], im[kDwRegI][kDwRegO];
+#pragma unroll
+  for (int a = 0; a < kDwRegI; ++a)
+#pragma unroll
+    for (int c = 0; c < kDwRegO; ++c) re[a][c] = im[a][c] = 0.f;
+
+  auto stage = [&](int ch) {        // chunk ch's copies, one commit group
+    const int nb = min(kb, d.B - ch * kb), buf = ch & 1;
+    const long long b0 = (long long)ch * kb;
+    stage_rows(sx + buf * kb * pI, xs + b0 * d.xs[0], d.xs[0], d.xs[3], nb,
+               wI, pI, vec_x);
+    stage_rows(sd + buf * kb * pO, ds + b0 * d.ds[0], d.ds[0], d.ds[3], nb,
+               wO, pO, vec_d);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  stage(0);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      stage(ch + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // chunk ch in
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (live) {
+      const float2* cx = sx + (ch & 1) * kb * pI + ia;
+      const float2* cd = sd + (ch & 1) * kb * pO + oa;
+      const int nb = min(kb, d.B - ch * kb);
+      for (int b = 0; b < nb; ++b) {
+        float xr[kDwRegI], xi[kDwRegI], dr[kDwRegO], di[kDwRegO];
+#pragma unroll
+        for (int q = 0; q < kDwRegI; q += 2) {
+          const float4 v = *reinterpret_cast<const float4*>(cx + b * pI + q);
+          xr[q] = v.x, xi[q] = v.y, xr[q + 1] = v.z, xi[q + 1] = v.w;
+        }
+#pragma unroll
+        for (int q = 0; q < kDwRegO; q += 2) {
+          const float4 v = *reinterpret_cast<const float4*>(cd + b * pO + q);
+          dr[q] = v.x, di[q] = v.y, dr[q + 1] = v.z, di[q + 1] = v.w;
+        }
+#pragma unroll
+        for (int a = 0; a < kDwRegI; ++a)
+#pragma unroll
+          for (int c = 0; c < kDwRegO; ++c) {
+            // conj(x) dout = (xr dr + xi di) + i (xr di - xi dr)
+            re[a][c] = fmaf(xr[a], dr[c], re[a][c]);
+            re[a][c] = fmaf(xi[a], di[c], re[a][c]);
+            im[a][c] = fmaf(xr[a], di[c], im[a][c]);
+            im[a][c] = fmaf(-xi[a], dr[c], im[a][c]);
+          }
+      }
+    }
+    __syncthreads();  // the next stage overwrites this chunk's buffer
+  }
+  if (!live) return;
+  float* out = corner ? out1 : out0;
+  const long long blk = (long long)d.m1 * d.m2 * d.I * d.O;
+#pragma unroll
+  for (int a = 0; a < kDwRegI; ++a) {
+    if (ia + a >= wI) break;
+    const long long q0 =
+        (((long long)kx * d.m2 + ky) * d.I + i0 + ia + a) * d.O + o0 + oa;
+#pragma unroll
+    for (int c = 0; c < kDwRegO; c += 2) {
+      if (oa + c >= wO) break;
+      if (vec_o) {                 // q0 + c even, both outputs live
+        *reinterpret_cast<float2*>(out + q0 + c) =
+            make_float2(re[a][c], re[a][c + 1]);
+        *reinterpret_cast<float2*>(out + blk + q0 + c) =
+            make_float2(im[a][c], im[a][c + 1]);
+        continue;
+      }
+      out[q0 + c] = re[a][c];
+      out[blk + q0 + c] = im[a][c];
+      if (oa + c + 1 < wO) {
+        out[q0 + c + 1] = re[a][c + 1];
+        out[blk + q0 + c + 1] = im[a][c + 1];
+      }
+    }
+  }
+}
+
+// Channel tiles of at most kDwMaxTile, balanced over n channels: the tile
+// width for `tiles` tiles, and the tile count that width needs
+void balance(int n, int& tiles, int& width) {
+  width = (n + tiles - 1) / tiles;
+  tiles = (n + width - 1) / width;
+}
+
+// 16-byte copies along the channels: they are contiguous, every row and
+// tile starts on an even element, and the spectrum is 16-byte aligned
+int pairs_fit(const long long* st, int tile, const float* p) {
+  return st[3] == 1 && st[0] % 2 == 0 && st[1] % 2 == 0 && st[2] % 2 == 0 &&
+         tile % 2 == 0 && reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// x: interleaved complex64 (B, H, Wh, I), dout (B, H, Wh, O), any strides
+// (d->xs, d->ds, in complex elements); out0, out1: the low and high
+// corner's contiguous (2, m1, m2, I, O) float32 gradients, each written
+// only where d->want asks for it (the other may be null).  Returns the
+// launch's cudaError_t.
+extern "C" int pde_spectral_corners_dw(const CornerDwDims* d, const float* x,
+                                       const float* dout, float* out0,
+                                       float* out1, void* stream) {
+  const int nc = (d->want[0] != 0) + (d->want[1] != 0);
+  if (nc == 0) return cudaSuccess;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  int i_tiles = (d->I + kDwMaxTile - 1) / kDwMaxTile, tI;
+  int o_tiles = (d->O + kDwMaxTile - 1) / kDwMaxTile, tO;
+  balance(d->I, i_tiles, tI);
+  balance(d->O, o_tiles, tO);
+  const long long modes = (long long)nc * d->m1 * d->m2;
+  // fill the card: halve the wider tile while it is 16 channels or more
+  while (modes * i_tiles * o_tiles < sms && (tI >= 16 || tO >= 16)) {
+    if (tO >= tI) {
+      o_tiles *= 2;
+      balance(d->O, o_tiles, tO);
+    } else {
+      i_tiles *= 2;
+      balance(d->I, i_tiles, tI);
+    }
+  }
+  const long long blocks = modes * i_tiles * o_tiles;
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  const int pI = dw_pitch(tI, kDwRegI), pO = dw_pitch(tO, kDwRegO);
+  int kb = kDwSmemBytes / 2 / ((pI + pO) * (int)sizeof(float2));
+  kb = kb < kDwMaxRows ? kb : kDwMaxRows;
+  kb = kb < d->B ? kb : d->B;
+  const int nbuf = d->B > kb ? 2 : 1;
+  const int smem = nbuf * kb * (pI + pO) * (int)sizeof(float2);
+  const int threads =
+      ((pI / kDwRegI) * (pO / kDwRegO) + 31) / 32 * 32;
+  corners_dw_kernel<<<(unsigned)blocks, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      *d, d->want[0] ? 0 : 1, i_tiles, o_tiles, tI, tO, kb,
+      pairs_fit(d->xs, tI, x), pairs_fit(d->ds, tO, dout),
+      d->O % 2 == 0 && tO % 2 == 0, reinterpret_cast<const float2*>(x),
+      reinterpret_cast<const float2*>(dout), out0, out1);
   return cudaGetLastError();
 }

@@ -106,6 +106,17 @@ class SpectralDims(ctypes.Structure):
         ("ws", (ctypes.c_longlong * 4) * 2), ("sgn_wi", ctypes.c_float)]
 
 
+class CornerDwDims(ctypes.Structure):
+    """Mirror of `struct CornerDwDims` in csrc/corner_contract.cu: the two
+    spectra's shape, the corner sizes, which corners' weight gradients to
+    write, and each spectrum's complex element strides over (b, h, ky,
+    channel)."""
+    _fields_ = [(k, ctypes.c_int) for k in ("B", "H", "Wh", "I", "O", "m1",
+                                            "m2")] + [
+        ("want", ctypes.c_int * 2), ("xs", ctypes.c_longlong * 4),
+        ("ds", ctypes.c_longlong * 4)]
+
+
 _ENTRIES = {
     # dims, ops, work, Y, out, stream
     "pde_poisson_solve": [_P, _P, _P, _P, _P, _P],
@@ -126,6 +137,8 @@ _ENTRIES = {
     "pde_corner_contract": [_P] * 8,
     # spectral dims, x_ft, wr low, wi low, wr high, wi high, out_ft, stream
     "pde_spectral_corners": [_P] * 8,
+    # dw dims, x_ft, dout, dw low, dw high, stream
+    "pde_spectral_corners_dw": [_P] * 6,
     # dims, ops, work, Y, rows, t, stream / dims, ops, work, P, rows, out,
     # stream
     "pde_xz_forward": [_P, _P, _P, _P, ctypes.c_int, _P, _P],

@@ -8,10 +8,12 @@ Two entries.  `spectral_corners` is what a spectral conv calls between
 `rfftn` and `irfftn`: it takes the complex spectrum and the two corners'
 stored weights and returns the whole output spectrum (products in the
 corners, zeros elsewhere); on a CUDA tensor that is one allocation and one
-launch of `pde_spectral_corners`, forward and for the gradient to x.
-`corner_contract` is the JAX function of that name, on stacked corner rows
-with split real and imaginary parts (below); the weight gradient of
-`spectral_corners` runs through its kernel.
+launch of `pde_spectral_corners`, forward and for the gradient to x, and
+one launch of `pde_spectral_corners_dw` for the gradients to both
+corners' weights (`spectral_corners_dw_kernel`).  `corner_contract` is the
+JAX function of that name, on stacked corner rows with split real and
+imaginary parts (below), with its own kernel, `pde_corner_contract`, which
+nothing else runs.
 
 `out[b,kx,ky,o] = sum_i x[b,kx,ky,i] w[i,o,kx,ky]` is a per-mode complex
 (B, I) x (I, O) product.  Complex data rides as separate real and
@@ -281,6 +283,106 @@ spectral_corners_kernel.launches = 0
 spectral_corners_kernel.adjoint_launches = 0
 
 
+@lru_cache(maxsize=256)
+def _dw_plan(x_shape, d_shape, x_strides, d_strides, m1, m2, want):
+    """Shape checks and the C struct of one weight-gradient call signature
+    (strides included), kept as `_spectral_plan` keeps its own: returns
+    (struct, its byref, the gradients' shape, one (2, m1, m2, I, O) block
+    per corner asked for)."""
+    if len(x_shape) != 4 or len(d_shape) != 4 or x_shape[:3] != d_shape[:3]:
+        raise ValueError(
+            "spectral_corners_dw: x_ft (B, H, Wh, I) and dout (B, H, Wh, O) "
+            f"expected, got {tuple(x_shape)} and {tuple(d_shape)}")
+    B, H, Wh, I = x_shape
+    O = d_shape[3]
+    if min(B, I, O, m1, m2) < 1 or 2 * m1 > H or m2 > Wh or not any(want):
+        raise ValueError(
+            f"spectral_corners_dw: expected room for two {m1} x {m2} corners "
+            f"in spectra {tuple(x_shape)} and {tuple(d_shape)} and a corner "
+            f"asked for, got want={want}")
+    d = cuda_build.CornerDwDims(B, H, Wh, I, O, m1, m2)
+    d.want[:] = [int(w) for w in want]
+    d.xs[:] = x_strides
+    d.ds[:] = d_strides
+    return d, ctypes.byref(d), (sum(want), 2, m1, m2, I, O)
+
+
+def spectral_corners_dw_plain(x_ft, dout, m1: int, m2: int,
+                              want=(True, True)):
+    """The weight gradient of `spectral_corners` in plain torch, any complex
+    dtype: per corner asked for, `conj(x)^T dout` over the batch for every
+    mode of it (one `einsum` on the corner blocks), as the (2, m1, m2, I, O)
+    real and imaginary parts that the weight views have.  x_ft
+    (B, H, Wh, I), dout (B, H, Wh, O).  Returns [low, high], None for a
+    corner not asked for.  The plain version of
+    `spectral_corners_dw_kernel`."""
+    out = []
+    for rows, asked in zip((slice(None, m1), slice(-m1, None)), want):
+        if not asked:
+            out.append(None)
+            continue
+        g = torch.einsum("bxyi,bxyo->xyio", x_ft[:, rows, :m2].conj(),
+                         dout[:, rows, :m2])
+        out.append(torch.stack([g.real, g.imag]))
+    return out
+
+
+def spectral_corners_dw_kernel(x_ft, dout, m1: int, m2: int,
+                               want=(True, True)):
+    """The weight gradient of `spectral_corners` on the card in one launch
+    (csrc/corner_contract.cu, `pde_spectral_corners_dw`): for each corner
+    asked for (`want`: low, high), `dw[kx, ky, i, o] = sum_b conj(x[b, h,
+    ky, i]) dout[b, h, ky, o]` over its rows h ([0, m1) and [H - m1, H))
+    and columns [0, m2).
+
+    x_ft (B, H, Wh, I), dout (B, H, Wh, O): complex64 CUDA spectra of any
+    strides (read in place; rfftn and autograd leave them channels-first),
+    not conjugate views.  Returns [low, high]: float32 (2, m1, m2, I, O)
+    real and imaginary blocks, the shape of the weight views, None for a
+    corner not asked for; one `torch.empty`, one launch on the current
+    stream, the same bits from call to call.  Raises on anything else, and
+    on an input that needs a gradient; it never falls back.  `launches`
+    counts every launch."""
+    if torch.is_grad_enabled() and (x_ft.requires_grad or dout.requires_grad):
+        raise RuntimeError(
+            "spectral_corners_dw: a CUDA kernel passes no gradient; detach "
+            "the inputs or use the differentiable entry "
+            "(spectral_cuda.spectral_corners)")
+    dev = x_ft.device
+    if not (x_ft.is_cuda and x_ft.dtype is torch.complex64
+            and dout.dtype is torch.complex64 and dout.device == dev):
+        raise ValueError(
+            "spectral_corners_dw: the CUDA kernel takes complex64 CUDA "
+            f"spectra on one card; got {x_ft.dtype} on {dev} and "
+            f"{dout.dtype} on {dout.device}")
+    want = (bool(want[0]), bool(want[1]))
+    _, dims_ref, out_shape = _dw_plan(x_ft.shape, dout.shape, x_ft.stride(),
+                                      dout.stride(), int(m1), int(m2), want)
+    if x_ft.is_conj() or dout.is_conj():
+        raise ValueError("spectral_corners_dw: expected spectra that are "
+                         "not conjugate views (resolve_conj first)")
+    blocks = iter(torch.empty(out_shape, dtype=torch.float32, device=dev))
+    dw = [next(blocks) if w else None for w in want]
+    err = cuda_build.load().pde_spectral_corners_dw(
+        dims_ref, x_ft.data_ptr(), dout.data_ptr(),
+        *(None if g is None else g.data_ptr() for g in dw),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        cuda_build.check(err, "pde_spectral_corners_dw")
+    spectral_corners_dw_kernel.launches += 1
+    return dw
+
+
+spectral_corners_dw_kernel.launches = 0
+
+
+def _corner_dw(x_ft, dout, m1, m2, want):
+    """Kernel for CUDA spectra, plain version for CPU ones."""
+    if x_ft.is_cuda:
+        return spectral_corners_dw_kernel(x_ft, dout, m1, m2, want)
+    return spectral_corners_dw_plain(x_ft, dout, m1, m2, want)
+
+
 def _adjoint_weight(view):
     """The (2, m1, m2, I, O) view of a weight as the dict of its conjugate
     transpose (2, m1, m2, O, I)."""
@@ -302,13 +404,20 @@ class _SpectralCorners(torch.autograd.Function):
     """`spectral_corners` on the (2, m1, m2, I, O) views of the two
     corners' weights.  Forward: one launch.  Backward: `dx_ft` is the same
     entry on `dout_ft` with the weights read transposed and conjugated (it
-    gathers the corners of `dout_ft` and writes `dx_ft` whole); `dw` of
-    each corner is `conj(x)^T dout` over that corner's blocks through the
-    strided entry behind `corner_contract`, the channel axis in the batch
-    role.  Each runs only where an input asks for its gradient."""
+    gathers the corners of `dout_ft` and writes `dx_ft` whole); the two
+    corners' `dw = conj(x)^T dout` are one launch of the weight-gradient
+    entry on the saved `x_ft` (the contiguous copy the forward entry read)
+    and on `dout_ft` (the contiguous copy the gradient to x reads, else
+    where autograd left it, channels-first), for the corners whose weights
+    ask for a gradient.  Each runs only where an input asks for its
+    gradient."""
 
     @staticmethod
     def forward(ctx, x_ft, w_low, w_high):
+        if x_ft.is_cuda:
+            # the copy the fused entry reads (rfftn leaves the spectrum
+            # channels-first) is the one kept: dw reads it 16 bytes a thread
+            x_ft = x_ft.contiguous()
         ctx.save_for_backward(x_ft, w_low, w_high)
         return _corners(x_ft, w_low, w_high)
 
@@ -317,21 +426,16 @@ class _SpectralCorners(torch.autograd.Function):
     def backward(ctx, dout):
         x_ft, w_low, w_high = ctx.saved_tensors
         dout = dout.resolve_conj()
-        m1, m2 = w_low.shape[1:3]
         dx = None
         if ctx.needs_input_grad[0]:
+            # the fused entry reads a contiguous spectrum; dw then reads
+            # the same copy, 16 bytes a thread
+            dout = dout.contiguous()
             dx = _corners(dout, w_low, w_high, adjoint=True)
+        want = tuple(ctx.needs_input_grad[1:3])
         dws = [None, None]
-        for c, rows in enumerate((slice(None, m1), slice(-m1, None))):
-            if not ctx.needs_input_grad[1 + c]:
-                continue
-            xb, db = x_ft[:, rows, :m2], dout[:, rows, :m2]  # (B, m1, m2, .)
-            # per mode (I, B) @ (B, O); the kernel emits (m1, I, m2, O)
-            dwr, dwi = _contract(xb.real.permute(1, 3, 2, 0),
-                                 xb.imag.permute(1, 3, 2, 0),
-                                 db.real.permute(1, 2, 0, 3),
-                                 db.imag.permute(1, 2, 0, 3), conj_x=True)
-            dws[c] = torch.stack([dwr, dwi]).transpose(2, 3)
+        if any(want):
+            dws = _corner_dw(x_ft, dout, *w_low.shape[1:3], want)
         return dx, dws[0], dws[1]
 
 

@@ -465,7 +465,7 @@ def test_spectral_corners_grads_match_jax_vjp(layout, spatial, half_modes,
                                               out_sizes):
     """The gradients to x and to both stored weights through the kernel
     route on the CPU (the Function's backward: the adjoint entry for dx,
-    the strided contraction for dw) against `jax.vjp` of the JAX conv;
+    the weight-gradient entry for dw) against `jax.vjp` of the JAX conv;
     float64, rtol 1e-8."""
     x, ws = fused_case(53, layout, spatial, half_modes)
     cot = np.random.default_rng(54).normal(
@@ -489,33 +489,44 @@ def test_spectral_corners_grads_match_jax_vjp(layout, spatial, half_modes,
                                    atol=1e-8 * np.abs(b).max())
 
 
-@pytest.mark.parametrize("frozen", ["w", "x", "none"])
+@pytest.mark.parametrize("frozen", ["w", "x", "none", "x and low"])
 def test_spectral_corners_backward_runs_what_is_asked(frozen, monkeypatch):
-    """A frozen observer costs one adjoint pass per conv (dx) and no
-    strided contraction; training adds one per corner (dw)."""
-    passes, strided = [], []
-    real_corners, real_contract = (spectral_cuda._corners,
-                                   spectral_cuda._contract)
+    """A frozen observer costs one adjoint pass per conv (dx) and no weight
+    gradient; training adds one weight-gradient call per conv, for the
+    corners whose weights ask for a gradient, and none of the strided
+    contraction."""
+    passes, dw_calls, strided = [], [], []
+    real_corners, real_dw, real_contract = (
+        spectral_cuda._corners, spectral_cuda._corner_dw,
+        spectral_cuda._contract)
     monkeypatch.setattr(
         spectral_cuda, "_corners", lambda *a, adjoint=False:
         passes.append(adjoint) or real_corners(*a, adjoint=adjoint))
+    monkeypatch.setattr(
+        spectral_cuda, "_corner_dw",
+        lambda *a: dw_calls.append(a[2:]) or real_dw(*a))
     monkeypatch.setattr(
         spectral_cuda, "_contract",
         lambda *a, **k: strided.append(k) or real_contract(*a, **k))
     x, ws = fused_case(55, "mm2", (8, 8), (3, 3))
     x_ft = torch.fft.rfftn(t64(x), dim=(1, 2))
     leaves = [t64(w["mm2"]) for w in ws]
-    needs = {"w": [x_ft], "x": leaves, "none": [x_ft, *leaves]}[frozen]
+    needs = {"w": [x_ft], "x": leaves, "none": [x_ft, *leaves],
+             "x and low": leaves[1:]}[frozen]
     for a in needs:
         a.requires_grad_()
     out = spectral_cuda.spectral_corners(x_ft, [{"mm2": v} for v in leaves])
-    assert passes == [False] and not strided
+    assert passes == [False] and not dw_calls
     (out.real.sum() + (out.imag ** 2).sum()).backward()
-    assert passes == ([False] if frozen == "x" else [False, True])
-    assert len(strided) == (0 if frozen == "w" else 2)
-    assert all(k == {"conj_x": True} for k in strided)
+
+    def needed(t):
+        return any(a is t for a in needs)
+    assert passes == ([False, True] if needed(x_ft) else [False])
+    want = (needed(leaves[0]), needed(leaves[1]))
+    assert dw_calls == ([] if frozen == "w" else [(3, 3, want)])
+    assert not strided
     for a in (x_ft, *leaves):
-        assert (a.grad is not None) == any(a is b for b in needs)
+        assert (a.grad is not None) == needed(a)
 
 
 def test_spectral_corners_reads_the_weights_where_they_are_stored():

@@ -775,9 +775,9 @@ def test_kernel_args_needs_a_card():
 # The ctypes mirrors against the structs' text.
 # ---------------------------------------------------------------------------
 
-def _struct_fields(name):
-    """Field names of `struct name` in csrc/common.cuh, in order."""
-    src = (cuda_build.CSRC / "common.cuh").read_text()
+def _struct_fields(name, source="common.cuh"):
+    """Field names of `struct name` in csrc/`source`, in order."""
+    src = (cuda_build.CSRC / source).read_text()
     body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = []
@@ -791,10 +791,14 @@ def _struct_fields(name):
     return names
 
 
-@pytest.mark.parametrize("name", ["Ops", "Dims", "EigPlan", "Work"])
+@pytest.mark.parametrize("name", ["Ops", "Dims", "EigPlan", "Work",
+                                  "CornerDims", "SpectralDims",
+                                  "CornerDwDims"])
 def test_ctypes_mirror_names_the_structs_fields_in_order(name):
+    source = "corner_contract.cu" if "Corner" in name or "Spectral" in name \
+        else "common.cuh"
     mirror = [f[0] for f in getattr(cuda_build, name)._fields_]
-    assert mirror == _struct_fields(name)
+    assert mirror == _struct_fields(name, source)
 
 
 def test_ops_carries_no_dead_pointer():
