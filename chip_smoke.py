@@ -195,15 +195,34 @@ result):
      sweeps), Burgers and spherical shallow-water loaders at their
      defaults and `utils.misc`'s spectra on the card against the CPU (the
      shells' sums take atomics there); no kernel of the port launched.
+ 15. (run before phase 12, as 13) the drag study's tool and the spin-up
+     tool: `tools.drag_rows` with the `rand`, `rno` and `transformer`
+     rows beside `unmanipulated` and `gt`, 200 staged steps each, from
+     seeded full-width observers saved as a `.msgpack` (RNO) and a `.pt`
+     (transformer) and a 100-step dataset's normalizers: every row finite,
+     3 kernel-A launches a step and no kernel D, exactly 28 and 3 forward
+     corner launches a `rno` and `transformer` step, the study's
+     summary.json and table.md; the same call again reads the cached rows
+     and launches nothing; the spin-up's first 50 steps from the tripped
+     state (`init_turbulent_state`, seed 7) on the card against the CPU in
+     float64 on the card grid's coordinates (shear and bulk 2e-5, dPdx
+     5e-3), exactly 3 launches each of
+     kernels A and B a step; ms, device ms, launches and busy share a
+     spin-up step (`tools/profile_paths.measure`); `tools.spinup` for two
+     500-step chunks, its snapshot in the packaged asset's keys, dtypes and
+     shapes, an NSControlEnv built from it on the card and stepped 20
+     times.
 The line before the last is the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -926,6 +945,181 @@ def dino_phase(dev, smi, port_launches):
     log(f"{elapsed()} DINo phase: {time.perf_counter() - t_phase:.1f} s, "
         f"{n_port} launches of the port's kernels")
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def study_phase(dev, smi, h):
+    """Phase 15, the drag study's tool and the spin-up tool on the card;
+    `h` holds main's `zero_counts`, `corner_counts` and `every` (the env
+    kernels' wrappers by name).  Returns the phase's numbers and each
+    path's launches."""
+    import numpy as np
+    import torch
+
+    from pde_policylearning_torch.control import make_policy, run_closed_loop
+    from pde_policylearning_torch.data import generate_channel_dataset
+    from pde_policylearning_torch.envs import NSControlEnv
+    from pde_policylearning_torch.envs import channel_flow as cf
+    from pde_policylearning_torch.envs import rk3_cuda as rk
+    from pde_policylearning_torch.envs.control_env import \
+        default_snapshot_path
+    from pde_policylearning_torch.tools import drag_rows as dr
+    from pde_policylearning_torch.tools import spinup as sp
+    from pde_policylearning_torch.tools.profile_paths import measure
+    from pde_policylearning_torch.training import save_checkpoint
+    zero, corners, every = h["zero_counts"], h["corner_counts"], h["every"]
+    t_phase = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp()
+
+    def counts():
+        return {k: f.launches for k, f in every.items()}
+
+    # the rows of the study at full width from seeded checkpoints, staged
+    data = generate_channel_dataset(os.path.join(tmp, "planes"), 100,
+                                    detect_plane=25, env_kwargs=dict(
+                                        device=dev))
+    ckpts = {name: save_checkpoint(
+        os.path.join(tmp, f"{name}.{ext}"), dr.observer(
+            name, dev, generator=torch.Generator(device=dev).manual_seed(15)))
+        for name, ext in (("rno", "msgpack"), ("transformer", "pt"))}
+    n_rows, study = 200, os.path.join(tmp, "study")
+    runs = {}
+    for turn in ("run", "cached"):
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        res, series = dr.drag_rows(n_rows, False, dev, rand=True,
+                                   rno=ckpts["rno"],
+                                   transformer=ckpts["transformer"],
+                                   data=data, out_dir=study)
+        torch.cuda.synchronize()
+        runs[turn] = (time.perf_counter() - t0, counts(), corners(), res)
+    dt, env_counts, corner, res = runs["run"]
+    rows = ("unmanipulated", "gt", "rand", "rno", "transformer")
+    per_step = {"rno": 28, "transformer": 3}     # corner launches a step
+    for name in rows:
+        row = res.get(name, {})
+        if "failed" in row or not row.get("finite") or \
+                len(series.get(name, ())) != n_rows:
+            FAILED.append(f"drag study: row {name} {row}")
+        elif (row["substage_launches"], row["kernel_d_launches"],
+              row["corner_launches"]) != (3 * n_rows, 0,
+                                          per_step.get(name, 0) * n_rows):
+            FAILED.append(f"drag study: row {name} launched kernel A "
+                          f"{row['substage_launches']}, kernel D "
+                          f"{row['kernel_d_launches']} and the corner entry "
+                          f"{row['corner_launches']} times over {n_rows} "
+                          "staged steps")
+    want = ((28 + 3) * n_rows, 0, 0, 0)
+    if corner != want:
+        FAILED.append(f"drag study: corner launches (forward, adjoint, "
+                      f"strided, dw) {corner}, expected {want} (28 a `rno` "
+                      "step, 3 a `transformer` step)")
+    for k in ("poisson", "boundary_fwd", "boundary_solve", "rk3_substage",
+              "rk3_solve_correct"):
+        if not env_counts[k]:
+            FAILED.append(f"drag study: kernel {k} not launched")
+    if env_counts["rk3_fullstep"]:
+        FAILED.append("drag study: kernel D launched on the staged rows")
+    c_dt, c_env, c_corner, c_res = runs["cached"]
+    if any(c_env.values()) or any(c_corner) or \
+            not all(c_res[n].get("cached") for n in rows):
+        FAILED.append(f"drag study: the cached rows launched {c_env} and "
+                      f"corner entries {c_corner}, or were run again")
+    with open(os.path.join(study, "summary.json")) as f:
+        summary = json.load(f)
+    if list(summary["tail_mean"]) != list(rows) or \
+            not os.path.exists(os.path.join(study, "table.md")):
+        FAILED.append(f"drag study: summary.json {summary}")
+    out["study"] = dict(seconds=dt, cached_seconds=c_dt, **{
+        n: dict(steps_per_s=res[n]["steps_per_s"], tail=res[n]["tail"],
+                corner_launches=res[n]["corner_launches"])
+        for n in rows if "steps_per_s" in res.get(n, {})})
+    out["launches_drag_study"] = dict(env_counts, corner=corner)
+    log(f"{elapsed()} drag study: {len(rows)} rows x {n_rows} staged steps "
+        f"in {dt:.1f} s, again from the cache in {c_dt:.2f} s; "
+        f"{json.dumps(out['study'])}; launches {env_counts}, corner "
+        f"{corner}  ({smi})")
+
+    # the spin-up: the first 50 steps from the tripped state on the card
+    # against the CPU in float64, then the tool's two 500-step chunks
+    Nx, Ny, Nz = 32, 130, 32
+    grid = cf.make_channel_grid(Nx, Ny, Nz, device=dev)
+    s0 = cf.init_turbulent_state(
+        grid, torch.Generator(device=dev).manual_seed(7))
+    zero()
+    mf0 = rk.mass_flow_kernel.launches
+    _, stats = cf.spinup_chunk(grid, s0, 50)
+    spin_counts = dict(counts(), mass_flow=rk.mass_flow_kernel.launches - mf0)
+    # the float64 run takes the card grid's coordinates: near y = 2 a
+    # float32 coordinate is off by up to half an ulp of 2, which moves the
+    # top wall's spacing y[-1] - y[-2], and tau_t that divides by it, by
+    # ~6e-5 (read on the CPU at 32x65x32: the plain float32 chunk's tau_t
+    # 6.5e-5 from the float64 grid's, 3.7e-6 from the float32
+    # coordinates')
+    g64 = dataclasses.replace(
+        cf.make_channel_grid(Nx, Ny, Nz, device="cpu", dtype=torch.float64),
+        cache={}, **{k: getattr(grid, k).double().cpu()
+                     for k in ("y", "ym", "yg")})
+    s64 = cf.ChannelState(**{k: getattr(s0, k).detach().double().cpu()
+                             for k in ("U", "V", "W", "dPdx", "meanU0")})
+    _, stats64 = cf.spinup_chunk(g64, s64, 50)
+    stats = stats.cpu()
+    # the shear and the bulk after each staged step at kernel B's limit
+    # (kernel A's is 1e-6); dPdx amplifies the bulk's rounding by 2 / dt
+    # and takes kernel D's
+    for j, (nm, tol) in enumerate((("tau_b", 2e-5), ("tau_t", 2e-5),
+                                   ("bulk", 2e-5), ("dPdx", 5e-3))):
+        check(f"spin-up: the first 50 steps' {nm} from the tripped state, "
+              "the card (staged kernels) against the CPU in float64",
+              rel(stats[:, j], stats64[:, j]), tol)
+    want = {k: 0 for k in every}
+    want.update(rk3_substage=150, rk3_solve_correct=150)
+    if {k: spin_counts[k] for k in every} != want or \
+            not spin_counts["mass_flow"]:
+        FAILED.append(f"spin-up: 50 steps launched {spin_counts}, expected "
+                      f"{want} and the mass flow")
+    prof = measure(lambda: cf.spinup_chunk(grid, s0, 50), 50, 50)
+    snap = os.path.join(tmp, "spinup.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sp.main(["--chunk", "500", "--min-chunks", "2", "--max-chunks",
+                   "2", "--seed", "7", "--out", snap])
+    wall = time.perf_counter() - t0
+    ref = np.load(default_snapshot_path())
+    d = np.load(snap)
+    if sorted(d.files) != sorted(ref.files) or any(
+            (d[k].dtype, d[k].shape) != (ref[k].dtype, ref[k].shape)
+            for k in ref.files if k != "history") or \
+            d["history"].shape != (2, 4) or got["chunks"] != 2 or \
+            not np.isfinite(d["history"]).all():
+        FAILED.append("spin-up: the snapshot "
+                      f"{[(k, d[k].dtype, d[k].shape) for k in d.files]} "
+                      f"or the run {got}")
+    env = NSControlEnv(Nx, Ny, Nz, init_cond_path=snap, device=dev)
+    res = run_closed_loop(env, make_policy("gt", env.grid), n_steps=20,
+                          log_interval=20, verbose=False)
+    if not all(np.isfinite(v).all() for v in res["series"].values()):
+        FAILED.append("spin-up: 20 steps from the written snapshot are not "
+                      "finite")
+    out["spinup"] = dict(
+        steps_per_s=got["steps_per_s"], wall_seconds=wall,
+        ms_per_step=1e3 / got["steps_per_s"],
+        device_ms_per_step=prof["device_ms_per_step"],
+        device_launches_per_step=prof["device_launches_per_step"],
+        busy_share=prof["busy_share"],
+        profiled_ms_per_step=1e3 / prof["env_steps_per_s"],
+        kernel_launches_per_step={k: v / 50 for k, v in spin_counts.items()
+                                  if v},
+        history=d["history"].tolist(),
+        gt_shear_from_snapshot=float(
+            res["series"]["drag_reduction/1_shear_stress"][-1]))
+    out["launches_spinup"] = spin_counts
+    log(f"{elapsed()} spin-up: {json.dumps(out['spinup'])}  ({smi})")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"{elapsed()} drag study and spin-up phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -3024,12 +3218,16 @@ def main() -> int:
     log("  dino " + json.dumps({k: v for k, v in dino.items()
                                 if k != "decode"}))
 
+    # 15. the drag study's tool and the spin-up tool; before phase 12 for
+    # the same reason as phase 13 (the spin-up is profiled)
+    study = study_phase(dev, smi, dict(zero_counts=zero_counts,
+                                       corner_counts=corner_counts,
+                                       every=every))
+
     # 12. the parallel layer on NCCL at world size 1 ------------------------
     # One card takes one NCCL rank: the layer's multi-rank logic is held by
     # the gloo tests on the CPU; here its collectives run at world size 1
     # in this process, and the dry run in ranks of its own.
-    import shutil
-
     import torch.distributed as dist
 
     from pde_policylearning_torch import parallel as par
@@ -3309,6 +3507,13 @@ def main() -> int:
         zip(entries, dp_train["Trainer(mesh)"][2]),
         per_training_step=dp_per_step,
         steps=dp_train["Trainer(mesh)"][4]["steps"])
+    # phase 15: the study's five rows (200 staged steps each) and the
+    # spin-up's 50 steps, read in the run
+    for k in every:
+        report[k]["launches_drag_study"] = study["launches_drag_study"][k]
+        report[k]["launches_spinup"] = study["launches_spinup"][k]
+    report["corner_contract"]["launches_drag_study"] = dict(
+        zip(entries, study["launches_drag_study"]["corner"]))
     report["corner_contract"]["launches_training"] = {
         k: {n: v[n] for n in (*entries, "per_training_step", "steps")}
         for k, v in trained.items()}

@@ -20,7 +20,8 @@ def test_port_never_imports_jax():
 
 def test_snapshot_is_the_ports_own_copy():
     """The packaged Re_tau ~ 180 snapshot lies inside the port's package
-    and holds the arrays of the JAX package's file, bit for bit."""
+    and is the JAX package's file byte for byte (the spin-up tool writes
+    its snapshots elsewhere)."""
     from pde_policylearning_torch.envs.control_env import \
         default_snapshot_path
     path = Path(default_snapshot_path()).resolve()
@@ -31,6 +32,11 @@ def test_snapshot_is_the_ports_own_copy():
     assert sorted(ours.files) == sorted(theirs.files)
     for k in theirs.files:
         np.testing.assert_array_equal(ours[k], theirs[k])
+    assert path.read_bytes() == (ROOT / "pde_policylearning_tpu" / "data"
+                                 / "assets" / "channel180_minchan_tpu.npz"
+                                 ).read_bytes()
+    from pde_policylearning_torch.tools import spinup
+    assert Path(spinup.OUT).parts[0] == "outputs"
 
 
 def test_port_names_no_path_into_the_jax_package():
@@ -54,8 +60,9 @@ def test_port_never_imports_the_jax_package():
     native loader and entries of every slice, the flagship slice's PINO
     models and full-field training, PINO pretraining, DDPG, the parallel
     layer, the UNO, graph, spherical and DeepONet models and the 2-D
-    channel, DINo, the .msgpack reader and the last ops, data and utils
-    among them) nor the smoke script imports
+    channel, DINo, the .msgpack reader and the last ops, data and utils,
+    the drag study's tool and the spin-up tool among them) nor the smoke
+    script imports
     pde_policylearning_tpu."""
     files = sorted((ROOT / "pde_policylearning_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
@@ -74,7 +81,8 @@ def test_port_never_imports_the_jax_package():
             "library.py", "preprocess.py", "fem.py",
             "fourier_continuation.py", "torch_init.py", "misc.py",
             "profiling.py", "visualization.py",
-            "run_spec_visualization.py"} <= names
+            "run_spec_visualization.py", "drag_rows.py",
+            "spinup.py"} <= names
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_TPU.search(f.read_text())]
     assert not offenders, f"imports the JAX package: {offenders}"
