@@ -23,6 +23,7 @@ import torch
 from torch.func import functional_call
 
 from ..envs import channel_flow as cf
+from ..utils.profiling import span
 
 
 class StatefulPolicy:
@@ -56,16 +57,18 @@ def _cuda_graph(fn: Callable[[], None], warmup: int = 2) -> Callable:
     `warmup` times on a side stream, then captured as one CUDA graph;
     returns the graph's replay.  The flagship policies' inner Adam loops
     are thousands of small launches a control step, which the host cannot
-    issue as fast as the card runs them; replayed, they cost one launch."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
+    issue as fast as the card runs them; replayed, they cost one launch.
+    The warm-up and the capture are the span `policy.capture`."""
+    with span("policy.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
             fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
     return graph.replay
 
 
@@ -89,7 +92,9 @@ def make_optimal_policy_observer(grid, *, observer_model, policy_model,
     `observer_model` is frozen here (`requires_grad_(False)`), so that only
     the gradient to its input is computed.  Both models lie on the env's
     device in the state's dtype.  On the card the Adam steps of a control
-    step are one CUDA graph (`cuda_graph`), captured at the first step."""
+    step are one CUDA graph (`cuda_graph`), captured at the first step
+    (`policy.capture`) and replayed, its inputs copied in, every step
+    (`policy.replay`)."""
     observer_model.requires_grad_(False)
     Nx, Nz = grid.Nx, grid.Nz
     carry, graphed = {}, {}
@@ -135,9 +140,10 @@ def make_optimal_policy_observer(grid, *, observer_model, policy_model,
                 for p, v in zip(params.values(), saved):
                     p.copy_(v)
             graphed["ins"] = ins
-        for buf, a in zip(graphed["ins"], (p2_in, opV2_in, re_arr)):
-            buf.copy_(a)
-        graphed["replay"]()
+        with span("policy.replay"):
+            for buf, a in zip(graphed["ins"], (p2_in, opV2_in, re_arr)):
+                buf.copy_(a)
+            graphed["replay"]()
         return graphed["res"]
 
     def step_fn(carry_, state, p2, generator):
@@ -171,7 +177,8 @@ def make_fullfield_optimal_observer(grid, *, observer_model, bound_v_norm,
     is frozen here.  The JAX package carries the observer's parameters (a
     TPU compile-size measure); here the carry is empty.  On the card the
     Adam steps of a control step are one CUDA graph (`cuda_graph`),
-    captured at the first step."""
+    captured at the first step (`policy.capture`) and replayed, its start
+    copied in, every step (`policy.replay`)."""
     observer_model.requires_grad_(False)
     Nx, Nz = grid.Nx, grid.Nz
     graphed = {}
@@ -207,8 +214,9 @@ def make_fullfield_optimal_observer(grid, *, observer_model, bound_v_norm,
                     _restart(opt)
                 descend(v, opt, re_buf)
             graphed.update(v=v, start=start, replay=_cuda_graph(run))
-        graphed["start"].copy_(v0)
-        graphed["replay"]()
+        with span("policy.replay"):
+            graphed["start"].copy_(v0)
+            graphed["replay"]()
         return graphed["v"].detach()
 
     def step_fn(carry, state, p2, generator):

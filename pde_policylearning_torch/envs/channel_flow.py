@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 _GRID_TENSORS = ("y", "ym", "yg", "kxx", "kzz", "eig_A", "eig_B", "eig_lam",
                  "Pinv00_eq", "s00", "DD_diag", "DD_lower", "DD_upper",
@@ -640,44 +641,50 @@ def _rollout_packed(grid, B, kst, n_steps, detect_plane, policy, generator,
     state and the plain versions for a CPU one.  `batch_of` = (start, n):
     these B envs are envs start .. start + B - 1 of a batch of n, and the
     `rand` draws are made for all n and this block kept (None: (0, B)).
-    Returns (kst', (p2 (T, B*C), v_plane (T, B*C), dPdx (T, B)[, U, V, W
-    (T, R, B*C)]))."""
+    The call is the span `rollout.chunk`, each step (all B envs) the span
+    `rollout.step`.  Returns (kst', (p2 (T, B*C), v_plane (T, B*C), dPdx
+    (T, B)[, U, V, W (T, R, B*C)]))."""
     from . import rk3_cuda as rk
-    dtype, dev = kst.U.dtype, kst.U.device
-    C = grid.Nx * grid.Nz
-    BC = B * C
-    start, n_all = batch_of or (0, B)
-    p2s = torch.empty((n_steps, BC), dtype=dtype, device=dev)
-    vps = torch.empty((n_steps, BC), dtype=dtype, device=dev)
-    dps = torch.empty((n_steps, B), dtype=dtype, device=dev)
-    fields = [torch.empty((n_steps,) + a.shape, dtype=dtype, device=dev)
-              for a in (kst.U, kst.V, kst.W)] if collect_fields else []
-    zero = torch.zeros((1, BC), dtype=dtype, device=dev)
-    for i in range(n_steps):
-        if policy == "gt":
-            o1, o2 = gt_control(kst, detect_plane)
-            op1, op2 = o1[None], o2[None]
-        elif policy == "rand":
-            op1, op2 = (rand_control(generator, (1, n_all * C), dtype=dtype,
-                                     device=dev)[:, start * C:start * C + BC]
-                        for _ in range(2))
-        else:
-            op1 = op2 = zero
-        if rk.FULLSTEP:
-            U, V, W, dPdx, p = rk.env_step_full_kb(
-                grid, B, kst.U, kst.V, kst.W, kst.dPdx, kst.meanU0, op1, op2)
-            p2 = p[1]
-        else:
-            U, V, W, dPdx = rk.rk3_step_kb(grid, B, kst.U, kst.V, kst.W,
-                                           kst.dPdx, kst.meanU0, op1, op2)
-            _, p2 = boundary(U, V, W, dPdx)
-        kst = kst.replace(U=U, V=V, W=W, dPdx=dPdx)
-        p2s[i] = p2.reshape(BC)
-        vps[i] = V[V.shape[0] - detect_plane]
-        dps[i] = dPdx
-        for buf, a in zip(fields, (U, V, W)):
-            buf[i] = a
-    return kst, (p2s, vps, dps, *fields)
+    with span("rollout.chunk"):
+        dtype, dev = kst.U.dtype, kst.U.device
+        C = grid.Nx * grid.Nz
+        BC = B * C
+        start, n_all = batch_of or (0, B)
+        p2s = torch.empty((n_steps, BC), dtype=dtype, device=dev)
+        vps = torch.empty((n_steps, BC), dtype=dtype, device=dev)
+        dps = torch.empty((n_steps, B), dtype=dtype, device=dev)
+        fields = [torch.empty((n_steps,) + a.shape, dtype=dtype, device=dev)
+                  for a in (kst.U, kst.V, kst.W)] if collect_fields else []
+        zero = torch.zeros((1, BC), dtype=dtype, device=dev)
+        for i in range(n_steps):
+            with span("rollout.step"):
+                if policy == "gt":
+                    o1, o2 = gt_control(kst, detect_plane)
+                    op1, op2 = o1[None], o2[None]
+                elif policy == "rand":
+                    op1, op2 = (rand_control(generator, (1, n_all * C),
+                                             dtype=dtype, device=dev)
+                                [:, start * C:start * C + BC]
+                                for _ in range(2))
+                else:
+                    op1 = op2 = zero
+                if rk.FULLSTEP:
+                    U, V, W, dPdx, p = rk.env_step_full_kb(
+                        grid, B, kst.U, kst.V, kst.W, kst.dPdx, kst.meanU0,
+                        op1, op2)
+                    p2 = p[1]
+                else:
+                    U, V, W, dPdx = rk.rk3_step_kb(
+                        grid, B, kst.U, kst.V, kst.W, kst.dPdx, kst.meanU0,
+                        op1, op2)
+                    _, p2 = boundary(U, V, W, dPdx)
+                kst = kst.replace(U=U, V=V, W=W, dPdx=dPdx)
+                p2s[i] = p2.reshape(BC)
+                vps[i] = V[V.shape[0] - detect_plane]
+                dps[i] = dPdx
+                for buf, a in zip(fields, (U, V, W)):
+                    buf[i] = a
+        return kst, (p2s, vps, dps, *fields)
 
 
 def _generator(generator, device):

@@ -71,6 +71,7 @@ from ..envs import rk3_cuda as rk
 from ..models import FNO2dObserver, RNO2dObserver, SimpleTransformer
 from ..ops.normalization import NormalizerGivenMeanStd
 from ..training import adam_l2, fullfield_losses, relative_l2_loss
+from ..utils import profiling
 from . import card_name, drag_rows
 
 
@@ -168,28 +169,17 @@ def measure(fn, n_env_steps: int, n_steps: int):
 
 
 def host_segments(env, policy, n_steps: int):
-    """Host ms per step spent enqueuing the policy and the env step, by the
-    host clock around each call in a hand-written loop with no synchronize
-    inside (the state is not written back to the env)."""
-    _, p2 = cf.boundary_pressures(env.grid, env.state)
-    st = rk.state_to_kstate(env.state)
-    init_carry = getattr(policy, "init_carry", None)
-    carry = init_carry() if init_carry is not None else None
-    t_policy = t_env = 0.0
+    """Host ms per step spent enqueuing the policy and the env step: the
+    `loop.policy` and `loop.env_step` spans of one `run_closed_loop` call
+    of `n_steps` steps in one chunk."""
     torch.cuda.synchronize()
-    for _ in range(n_steps):
-        t0 = time.perf_counter()
-        if carry is not None:
-            op1, op2, carry = policy(carry, st, p2, None)
-        else:
-            op1, op2 = policy(st, p2, None)
-        t1 = time.perf_counter()
-        st, p2, _ = rk.env_step_k(env.grid, st, op1, op2)
-        t_policy += t1 - t0
-        t_env += time.perf_counter() - t1
-    torch.cuda.synchronize()
-    return dict(host_ms_policy=1e3 * t_policy / n_steps,
-                host_ms_env_step=1e3 * t_env / n_steps)
+    with profiling.spans() as records:
+        run_closed_loop(env, policy, n_steps=n_steps, log_interval=n_steps,
+                        verbose=False)
+    return dict(
+        host_ms_policy=profiling.host_ms_per_step(records, (), "loop.policy"),
+        host_ms_env_step=profiling.host_ms_per_step(records, (),
+                                                    "loop.env_step"))
 
 
 def observer_forward(observer, Nx: int, Nz: int, n: int = 50):
