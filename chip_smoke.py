@@ -53,6 +53,12 @@ result):
      channels-first spectra (autograd's layout), bit for bit across all
      of these and between two calls; the strided entry behind `corner_contract` at its four shapes
      with its gradients;
+     the fused Adam kernel at the full-width flagship policy's 36 leaves
+     (226,526,081 parameters, one leaf in three with a zero gradient)
+     against its plain version over three steps: the update p - p0
+     (rel L2 1e-5), both moments (1e-6), the zero-gradient leaves
+     unmoved bit for bit; timed beside the plain version, torch's fused
+     and capturable Adam and its bound, 28 B a parameter;
      the same at the RNO's (I = O = 34, two 12 x 12 corners, B 1 and 32),
      the UNet's (64 -> 32) and the transformer regressor's (96 -> 48,
      48 -> 48 on B x T = 2 and 40 planes) shapes;
@@ -115,10 +121,15 @@ result):
      full-field `optimal-observer` through the seeded full-width observer
      at opt_steps 3 and 10, 200 steps each, one warm-up and three timed
      runs: exactly one kernel-D launch per step and no corner launch (the
-     PINO convs are 3-D), finite series, net flux <= 1e-6; then each
+     PINO convs are 3-D), exactly 3 x opt_steps fused Adam update
+     launches from each `optimal-policy-observer` policy (the graph's two
+     warm-up calls and its capture) and none from `optimal-observer`,
+     finite series, net flux <= 1e-6; then each
      policy (the residual one seeded) replayed as CUDA graphs against
      itself run eagerly, over one control step from one state and over
      20 closed-loop steps, and against the plain env step over 20 steps;
+     the residual one also against itself run eagerly with its Adam's
+     plain version in place of the fused kernel over 20 steps;
      every kernel of the path (kernel D, the Poisson solve, the wall
      pair) launched over the phase;
  10. PINO pretrain and finetune (`train_pino`): eight Kolmogorov-flow
@@ -325,6 +336,87 @@ def launches_per_step(run, n1=20, n2=40):
         counts.append(sum(n for n, _ in device_events(lambda: run(k))
                           .values()))
     return (counts[1] - counts[0]) / (n2 - n1), counts
+
+
+def fused_adam_row(dev, peak_bytes: float, steps: int = 3) -> dict:
+    """The fused Adam kernel (csrc/adam.cu) at the full-width flagship
+    policy's 36 leaves, 226,526,081 parameters (`tools/fused_adam.leaves`:
+    seeded values, every third leaf's gradient exactly zero): `steps`
+    steps of `FusedAdam` against as many of its plain version `adam_plain_`
+    on the same inputs on the card, held by the update p - p0 over every
+    leaf (the learning rate and both bias corrections scale it; rel L2
+    1e-5) and by each moment (1e-6); the zero-gradient leaves bit for bit
+    where they started.  Then its row of the kernels line: ms a step,
+    the update kernel's device us, the plain version's ms, torch's fused
+    Adam's (`library_ms`) and torch's capturable foreach Adam's (the
+    policy's optimizer before the kernel), and the bound, 28 B a parameter
+    at `peak_bytes`."""
+    import torch
+
+    from pde_policylearning_torch.tools import fused_adam as fa
+    from pde_policylearning_torch.training import optimizers as optim
+    start, grads = fa.leaves(dev)
+    n = sum(s.numel() for s in start)
+    ours = [s.clone().requires_grad_() for s in start]
+    for p, g in zip(ours, grads):
+        p.grad = g
+    opt = optim.FusedAdam(ours, lr=fa.LR)
+    plain = [s.clone() for s in start]
+    pm, pv = ([torch.zeros_like(p) for p in plain] for _ in range(2))
+    pstep = torch.zeros((), device=dev)
+
+    def plain_step():
+        optim.adam_plain_(plain, grads, pm, pv, pstep, lr=fa.LR)
+    k0 = optim.fused_adam_kernel.launches
+    for _ in range(steps):
+        opt.step()
+        plain_step()
+    torch.cuda.synchronize()
+    if optim.fused_adam_kernel.launches - k0 != steps:
+        FAILED.append(f"fused Adam: {optim.fused_adam_kernel.launches - k0} "
+                      f"update launches over {steps} steps")
+
+    def rel_over(pairs):
+        num = den = 0.0
+        for a, b in pairs:
+            num += float((a.detach() - b).double().square().sum())
+            den += float(b.double().square().sum())
+        return (num / den) ** 0.5
+    check(f"fused Adam at full width, {steps} steps against the plain "
+          "version: the update p - p0",
+          rel_over((p.detach() - s, q - s)
+                   for p, q, s in zip(ours, plain, start)), 1e-5)
+    for key, ref in (("exp_avg", pm), ("exp_avg_sq", pv)):
+        check(f"fused Adam at full width, {steps} steps against the plain "
+              f"version: {key}",
+              rel_over((opt.state[p][key], r) for p, r in zip(ours, ref)),
+              1e-6)
+    still = [i for i, (p, s) in enumerate(zip(ours, start))
+             if i % 3 == 0 and not torch.equal(p.detach(), s)]
+    if still:
+        FAILED.append(f"fused Adam: zero-gradient leaves {still} moved")
+    err = max(float((p.detach() - q).abs().max())
+              for p, q in zip(ours, plain))
+    del plain, pm, pv
+    row = dict(name="fused_adam", route="cuda",
+               source="pde_policylearning_torch/csrc/adam.cu",
+               replaces=None, shape=[len(start), n], max_abs_err=err,
+               ms=cuda_ms(opt.step),
+               device_us=device_us(opt.step, ["multi_tensor_apply_adam"])[0],
+               bound_ms=1e3 * 28 * n / peak_bytes, bound_by="bytes",
+               bytes=28 * n)
+    del opt, ours
+    torch.cuda.empty_cache()
+    for key, name in (("plain_ms", "plain"), ("library_ms", "torch_fused"),
+                      ("torch_capturable_ms", "torch_capturable")):
+        row[key] = cuda_ms(fa.route(name, start, grads))
+        torch.cuda.empty_cache()
+    log(f"  fused_adam: {row['ms']:.4f} ms a step (update kernel "
+        f"{row['device_us']:.1f} us; plain {row['plain_ms']:.4f}, torch "
+        f"fused {row['library_ms']:.4f}, torch capturable "
+        f"{row['torch_capturable_ms']:.4f}; bound {row['bound_ms']:.4f} ms "
+        f"by bytes), max abs err {err:.3e}")
+    return row
 
 
 # device launches per step on a power-of-two grid: kernel D's C entry (3 x
@@ -2256,6 +2348,10 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
             "device_us")})
 
+    log("fused Adam at the full-width flagship policy's leaves: kernel "
+        "against plain version")
+    report["fused_adam"] = fused_adam_row(dev, PEAK_BYTES)
+
     log("spectral_conv_nd and FNO2dObserver(12, 12, 32): kernel route "
         "against plain route")
     gen = torch.Generator(device=dev)
@@ -2785,11 +2881,13 @@ def main() -> int:
     g.manual_seed(9)
     ff_observer = dr.fullfield_observer(None, dev, g)
     n_pol = 200
+    from pde_policylearning_torch.training import optimizers as optim
     for name, opt_steps in (("optimal-policy-observer", 3),
                             ("optimal-policy-observer", 10),
                             ("optimal-observer", 3), ("optimal-observer", 10)):
         env = fresh_env()
         policy = dr.flagship_policy(name, env, ff_observer, norm, opt_steps)
+        adam0 = optim.fused_adam_kernel.launches
         rates = []
         for i in range(4):
             torch.cuda.synchronize()
@@ -2815,6 +2913,17 @@ def main() -> int:
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
                     raise AssertionError(f"{name}: non-finite {k}")
+        # the residual policy's inner steps go through the fused Adam
+        # kernel: one update launch a step in the graph's two warm-up
+        # calls and its capture, none on replay; the full-field one keeps
+        # torch's Adam
+        adam = optim.fused_adam_kernel.launches - adam0
+        report["fused_adam"].setdefault("launches_flagship", {})[
+            f"{name} opt_steps {opt_steps}"] = adam
+        if adam != (3 * opt_steps if name == "optimal-policy-observer"
+                    else 0):
+            raise AssertionError(f"{name}, opt_steps {opt_steps}: {adam} "
+                                 "fused Adam launches over 4 runs")
         flux = np.abs(actions.mean(axis=(1, 2))).max()
         shear = res["series"]["drag_reduction/1_shear_stress"]
         log(f"  {name}, opt_steps {opt_steps}: steps/s runs "
@@ -2829,7 +2938,9 @@ def main() -> int:
         del policy
 
     # 20 steps from the same state: each policy replayed as CUDA graphs on
-    # kernel D, against itself run eagerly and against the plain env step.
+    # kernel D, against itself run eagerly, against the plain env step and,
+    # for the residual policy, run eagerly with its Adam's plain version in
+    # place of the fused kernel (phase 3 holds the kernel alone).
     # The residual policy is a seeded PolicyModel2D with its output layer
     # scaled by 1e-3 (the zeroed one only moves a constant, which the
     # zero-flux step removes)
@@ -2838,6 +2949,10 @@ def main() -> int:
         for prm in policy_model.head.fc2.parameters():
             prm.mul_(1e-3)
     kernel_d = rk.env_step_full_kb_kernel
+    adam_kernel = optim.fused_adam_kernel
+
+    def plain_adam(params, grads, m, v, step, scal, **kw):
+        optim.adam_plain_(params, grads, m, v, step, **kw)
 
     def flagship_pair(name, e, graph):
         if name == "optimal-observer":
@@ -2867,25 +2982,35 @@ def main() -> int:
             one.append(pol(pol.init_carry(), kst, p2_0, None)[1])
         check(f"one {name} step from one state, CUDA graph against eager: "
               "opV2", rel(*one), 1e-5)
-        routes = {}
-        for graph, plain in ((True, False), (False, False), (True, True)):
+        routes, variants = {}, [(True, None), (False, None), (True, "env")]
+        if name == "optimal-policy-observer":
+            variants.append((False, "adam"))
+        for graph, plain in variants:
             e = fresh_env()
             pol = flagship_pair(name, e, graph)
-            if plain:
+            if plain == "env":
                 rk.env_step_full_kb_kernel = rk.env_step_full_kb_plain
+            if plain == "adam":
+                optim.fused_adam_kernel = plain_adam
             try:
                 routes[graph, plain] = (run_closed_loop(
                     e, pol, n_steps=20, log_interval=20, detect_plane=dp,
                     verbose=False, collect_planes=True), e)
             finally:
                 rk.env_step_full_kb_kernel = kernel_d
-        r_k, e_k = routes[True, False]
+                optim.fused_adam_kernel = adam_kernel
+        r_k, e_k = routes[True, None]
         # `gt`'s action is -v_plane of the step before
         log(f"  20 {name} steps: off gt by at most "
             f"{np.abs(r_k['opV2'][1:] + r_k['v_plane'][:-1]).max():.3e}, "
             f"actions at most {np.abs(r_k['opV2']).max():.3e}")
-        for (r, e), what in ((routes[False, False], "run eagerly"),
-                             (routes[True, True], "on the plain env step")):
+        for key, what in (((False, None), "run eagerly"),
+                          ((True, "env"), "on the plain env step"),
+                          ((False, "adam"), "run eagerly with Adam's plain "
+                                            "version")):
+            if key not in routes:       # the full-field policy's Adam
+                continue
+            r, e = routes[key]
             check(f"20 {name} steps, CUDA graphs on kernel D against {what}:"
                   " opV2", rel(torch.as_tensor(r_k["opV2"]),
                                torch.as_tensor(r["opV2"])),
@@ -3536,7 +3661,8 @@ def main() -> int:
            for k, v in zoo["graph"].items()})
     report["corner_contract"]["uno_shapes"] = zoo["uno"]["per_shape"]
     print(json.dumps({"kernels": [report[k] for k in
-                                  (*every, "corner_contract", "corner_dw")]}))
+                                  (*every, "corner_contract", "corner_dw",
+                                   "fused_adam")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ import torch
 from torch.func import functional_call
 
 from ..envs import channel_flow as cf
+from ..training.optimizers import FusedAdam
 from ..utils.profiling import span
 
 
@@ -43,7 +44,7 @@ class StatefulPolicy:
 
 
 def _restart(opt: torch.optim.Optimizer) -> None:
-    """Zero a torch Adam's moments and step counts in place, so that its
+    """Zero an Adam's moments and step counts in place, so that its
     next step is a fresh optimizer's first (the reference builds a new
     Adam every control step, run_control.py:172) without allocating the
     moments again (1.8 GB at the full-width `PolicyModel2D`)."""
@@ -87,7 +88,8 @@ def make_optimal_policy_observer(grid, *, observer_model, policy_model,
     does not).
 
     The carry is a copy of the policy's parameters (leaves that need a
-    gradient) and their Adam, allocated once: every run starts from
+    gradient) and their Adam (`training.optimizers.FusedAdam`: on the card
+    one kernel a step over every leaf), allocated once: every run starts from
     `policy_model`'s parameters again, which the policy never changes.
     `observer_model` is frozen here (`requires_grad_(False)`), so that only
     the gradient to its input is computed.  Both models lie on the env's
@@ -103,9 +105,8 @@ def make_optimal_policy_observer(grid, *, observer_model, policy_model,
         if not carry:
             params = {n: p.detach().clone().requires_grad_()
                       for n, p in policy_model.named_parameters()}
-            on_card = cuda_graph and next(iter(params.values())).is_cuda
-            carry.update(params=params, opt=torch.optim.Adam(
-                list(params.values()), lr=opt_lr, capturable=on_card))
+            carry.update(params=params, opt=FusedAdam(
+                list(params.values()), lr=opt_lr))
         with torch.no_grad():
             for n, p in policy_model.named_parameters():
                 carry["params"][n].copy_(p)

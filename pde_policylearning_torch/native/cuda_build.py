@@ -117,6 +117,28 @@ class CornerDwDims(ctypes.Structure):
         ("ds", ctypes.c_longlong * 4)]
 
 
+ADAM_CHUNK = 4096        # csrc/adam.cu: elements a chunk
+ADAM_MAX_LEAVES = 84     # leaves an `AdamTable`, a launch
+
+
+class AdamLeaf(ctypes.Structure):
+    """Mirror of `struct AdamLeaf` in csrc/adam.cu: one tensor's parameter,
+    gradient and moments (16-B aligned), its length and its first chunk of
+    the launch."""
+    _fields_ = [(k, _P) for k in ("p", "g", "m", "v")] + [
+        ("n", ctypes.c_longlong), ("chunk0", ctypes.c_int)]
+
+
+class AdamTable(ctypes.Structure):
+    """Mirror of `struct AdamTable` in csrc/adam.cu, the update kernel's
+    one parameter: the device scalars of the step, the constants, and up
+    to `ADAM_MAX_LEAVES` leaves."""
+    _fields_ = [("scal", _P)] + [(k, ctypes.c_float) for k in (
+        "b2", "a1", "a2", "eps")] + [
+        ("n_leaves", ctypes.c_int), ("n_chunks", ctypes.c_int),
+        ("leaf", AdamLeaf * ADAM_MAX_LEAVES)]
+
+
 _ENTRIES = {
     # dims, ops, work, Y, out, stream
     "pde_poisson_solve": [_P, _P, _P, _P, _P, _P],
@@ -143,6 +165,10 @@ _ENTRIES = {
     # stream
     "pde_xz_forward": [_P, _P, _P, _P, ctypes.c_int, _P, _P],
     "pde_xz_inverse": [_P, _P, _P, _P, ctypes.c_int, _P, _P],
+    # step, scal, lr, b1, b2, stream / table, stream
+    "pde_adam_count": [_P, _P, ctypes.c_double, ctypes.c_double,
+                       ctypes.c_double, _P],
+    "pde_adam_update": [_P, _P],
 }
 
 _lib = None

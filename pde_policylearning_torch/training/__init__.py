@@ -8,8 +8,8 @@ from .dino_train import (eval_dino, eval_dino_cond, init_dino, make_coords,
                          train_dino, train_dino_conditioned)
 from .observer_fullfield import (eval_fullfield_observer, fullfield_losses,
                                  pde_loss_fields, train_fullfield_observer)
-from .optimizers import (AdamL2, NesterovAdam, adam_l2, multistep_lr,
-                         negadam, step_lr)
+from .optimizers import (AdamL2, FusedAdam, NesterovAdam, adam_l2,
+                         multistep_lr, negadam, step_lr)
 from .pino_train import (eval_ns, mixed_train, progressive_train,
                          train_2d_burger, train_2d_operator, train_ns)
 from .torch_init import torch_reinit
@@ -18,7 +18,7 @@ from .trainer import Trainer, relative_l2_loss
 __all__ = ["load_checkpoint", "save_checkpoint", "load_msgpack",
            "save_msgpack", "eval_dino", "eval_dino_cond", "init_dino",
            "make_coords", "train_dino", "train_dino_conditioned",
-           "torch_reinit", "AdamL2", "NesterovAdam",
+           "torch_reinit", "AdamL2", "FusedAdam", "NesterovAdam",
            "adam_l2", "multistep_lr", "negadam", "step_lr", "Trainer",
            "relative_l2_loss", "eval_fullfield_observer", "fullfield_losses",
            "pde_loss_fields", "train_fullfield_observer", "eval_ns",

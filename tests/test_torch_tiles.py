@@ -787,16 +787,16 @@ def _struct_fields(name, source="common.cuh"):
             continue
         decl = re.sub(r"^(const\s+)?(long\s+long|\w+)\s*\*?", "", decl,
                       count=1)
-        names += [re.sub(r"[\s*]|\[\d+\]", "", v) for v in decl.split(",")]
+        names += [re.sub(r"[\s*]|\[\w+\]", "", v) for v in decl.split(",")]
     return names
 
 
 @pytest.mark.parametrize("name", ["Ops", "Dims", "EigPlan", "Work",
                                   "CornerDims", "SpectralDims",
-                                  "CornerDwDims"])
+                                  "CornerDwDims", "AdamLeaf", "AdamTable"])
 def test_ctypes_mirror_names_the_structs_fields_in_order(name):
     source = "corner_contract.cu" if "Corner" in name or "Spectral" in name \
-        else "common.cuh"
+        else "adam.cu" if "Adam" in name else "common.cuh"
     mirror = [f[0] for f in getattr(cuda_build, name)._fields_]
     assert mirror == _struct_fields(name, source)
 
