@@ -6,13 +6,15 @@ on.
 The window is calls of `call_steps` steps (one host fetch a call, the
 planes collected), continued on the same env.  Set-up ends in a discarded
 window of `warmup_seconds` on a copy of the inputs: the CUDA graph
-captured, every kernel built, and most processes past the slow stretch
-that many start in (steps ~4% slower, the card idle between the graph's
-kernels, for a few seconds to over a minute).  The benchmark's wrapper
-around the policy records a CUDA event as each step's policy is called; a
-step's interval runs to the next step's event (the window's last, to its
-end), so a stall anywhere lands in a step.  Each call's median interval
-of the discarded window goes to standard error.
+captured, every kernel built, and most processes past the slow mode that
+they start in (steps ~6.5% slower, the card idle between the graph's
+kernels at unchanged clocks; it ends at a random time, mostly within 20
+s, and on some machines not within a run: its cause lies outside the
+process).  The benchmark's wrapper around the policy records a CUDA
+event as each step's policy is called; a step's interval runs to the next
+step's event (the window's last, to its end), so a stall anywhere lands
+in a step.  Each call's median interval of both windows goes to standard
+error.
 
 The check starts from the states at the start of sampled calls (call 0
 starts from the benchmark's own inputs; every call starts the policy's
@@ -117,7 +119,7 @@ def setup(ctx) -> dict:
     env.state = cf.ChannelState(U=U[0].clone(), V=V[0].clone(),
                                 W=W[0].clone(), dPdx=dP[0].clone(),
                                 meanU0=mU[0].clone())
-    _show("discarded window", window(S, ctx, cell["warmup_seconds"]))
+    window(S, ctx, cell["warmup_seconds"], "discarded window")
     env.state = start
     return S
 
@@ -140,7 +142,7 @@ def _call(S, ctx, n):
             verbose=False)
 
 
-def window(S, ctx, seconds: float) -> dict:
+def window(S, ctx, seconds: float, what: str = "measured window") -> dict:
     import torch
     cell, env, pol = ctx.cell, S["env"], S["policy"]
     K, n_call = cell["check_steps"], cell["call_steps"]
@@ -180,9 +182,11 @@ def window(S, ctx, seconds: float) -> dict:
         if len(ms) != steps:
             raise RuntimeError(f"{len(ms)} step intervals for {steps} steps")
     pol.events = None
-    return dict(seconds=elapsed, steps=steps, attempted=steps,
-                e2e={"control_steps_per_s": steps / elapsed}, calls=n,
-                step_ms=ms, samples=[samples[k] for k in sorted(samples)])
+    win = dict(seconds=elapsed, steps=steps, attempted=steps,
+               e2e={"control_steps_per_s": steps / elapsed}, calls=n,
+               step_ms=ms, samples=[samples[k] for k in sorted(samples)])
+    _show(what, win)
+    return win
 
 
 def trace(S, ctx) -> dict:
@@ -203,7 +207,10 @@ def layer_inputs(ctx) -> dict:
                                       pad_ratio=cfg["pad_ratio"], **kw)
     f_pol = pino_counts.forward_flops(*shape, out_dim=1,
                                       pad_ratio=cfg["pad_ratio"], **kw)
-    n_pol = pino_counts.n_params(out_dim=1, **kw)
+    # Adam's work over the policy's leaves that can get a gradient: the
+    # spectral weights of the time modes a T = 1 plane holds, and the rest
+    n_pol = pino_counts.n_live_params(out_dim=1, T=shape[-1],
+                                      pad_ratio=cfg["pad_ratio"], **kw)
     k = cell["opt_steps"]
     policy = k * (3 * f_pol + 2 * f_obs
                   + pino_counts.ADAM_FLOPS_PER_PARAM * n_pol) + f_pol

@@ -4,9 +4,9 @@ Each test skips the look for a card and drives the rest of a run on the
 CPU (the program's plain versions) at a size a test can hold, with one
 fault planted in the program: a step that returns its state unchanged,
 half of the batch left out, an answer altered where it is produced, and,
-for the residual policy's inner Adam, a step that leaves its parameters
-unchanged and a learning rate twice the stated one.  The cells' limits
-are the committed ones.
+for the residual policy's inner Adam (`FusedAdam`, which the loop runs),
+a step that leaves its parameters unchanged and a learning rate twice
+the stated one.  The cells' limits are the committed ones.
 """
 import pytest
 import torch
@@ -56,15 +56,22 @@ def _plant(monkeypatch, fault):
         gt = cf.gt_control
         monkeypatch.setattr(cf, "gt_control", lambda s, d: tuple(
             1.01 * a for a in gt(s, d)))
+    if fault in ("optimizer", "wrong_lr"):
+        from pde_policylearning_torch.training import optimizers
+        adam = optimizers.FusedAdam
     if fault == "optimizer":
-        monkeypatch.setattr(torch.optim.Adam, "step",
-                            lambda self, closure=None: None)
+        monkeypatch.setattr(adam, "step", lambda self, closure=None: None)
     if fault == "wrong_lr":
-        init = torch.optim.Adam.__init__
+        init = adam.__init__
 
         def doubled(self, params, lr=1e-3, **kw):
             init(self, params, lr=2 * lr, **kw)
-        monkeypatch.setattr(torch.optim.Adam, "__init__", doubled)
+        monkeypatch.setattr(adam, "__init__", doubled)
+
+
+# the number each loop fault reads over its limit
+PLANTED = dict(unchanged="p2_rel", actuation="opV2_rel",
+               optimizer="param_gap", wrong_lr="param_gap")
 
 
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
@@ -81,9 +88,15 @@ def test_collect_fault_is_caught(monkeypatch, fault):
     ("pino-fullfield.opo-loop", "wrong_lr"),
 ])
 def test_loop_fault_is_caught(monkeypatch, cell, fault):
+    """The run comes out not correct, and through the number that the
+    fault plants: over its limit, and over the 1e-18 that rounding gives a
+    sound run's `opV2_rel` on the CPU (exactly 0 on the card), so that no
+    case passes on that alone."""
     _plant(monkeypatch, fault)
     out = _run(cell, monkeypatch, LOOP)
     assert out["correct"] is False, out["check"]
+    value, limit = out["check"][PLANTED[fault]]
+    assert value > max(limit, 1e-6), out["check"]
 
 
 @pytest.mark.parametrize("cell,overrides", [
