@@ -122,14 +122,15 @@ result):
      at opt_steps 3 and 10, 200 steps each, one warm-up and three timed
      runs: exactly one kernel-D launch per step and no corner launch (the
      PINO convs are 3-D), exactly 3 x opt_steps fused Adam update
-     launches from each `optimal-policy-observer` policy (the graph's two
-     warm-up calls and its capture) and none from `optimal-observer`,
-     finite series, net flux <= 1e-6; then each
+     launches from each policy (the graph's two warm-up calls and its
+     capture), finite series, net flux <= 1e-6; then each
      policy (the residual one seeded) replayed as CUDA graphs against
-     itself run eagerly, over one control step from one state and over
-     20 closed-loop steps, and against the plain env step over 20 steps;
-     the residual one also against itself run eagerly with its Adam's
-     plain version in place of the fused kernel over 20 steps;
+     itself run eagerly, over one control step from one state (the
+     full-field `optimal-observer` also on the benchmark cell's inputs
+     after a discarded window, and against the float64 reference there)
+     and over 20 closed-loop steps, and against the plain env step and
+     against itself run eagerly with its Adam's plain version in place
+     of the fused kernel over 20 steps;
      every kernel of the path (kernel D, the Poisson solve, the wall
      pair) launched over the phase;
  10. PINO pretrain and finetune (`train_pino`): eight Kolmogorov-flow
@@ -2913,15 +2914,13 @@ def main() -> int:
             for k, v in res["series"].items():
                 if not np.isfinite(v).all():
                     raise AssertionError(f"{name}: non-finite {k}")
-        # the residual policy's inner steps go through the fused Adam
-        # kernel: one update launch a step in the graph's two warm-up
-        # calls and its capture, none on replay; the full-field one keeps
-        # torch's Adam
+        # both policies' inner steps go through the fused Adam kernel:
+        # one update launch a step in the graph's two warm-up calls and
+        # its capture, none on replay
         adam = optim.fused_adam_kernel.launches - adam0
         report["fused_adam"].setdefault("launches_flagship", {})[
             f"{name} opt_steps {opt_steps}"] = adam
-        if adam != (3 * opt_steps if name == "optimal-policy-observer"
-                    else 0):
+        if adam != 3 * opt_steps:
             raise AssertionError(f"{name}, opt_steps {opt_steps}: {adam} "
                                  "fused Adam launches over 4 runs")
         flux = np.abs(actions.mean(axis=(1, 2))).max()
@@ -2982,9 +2981,8 @@ def main() -> int:
             one.append(pol(pol.init_carry(), kst, p2_0, None)[1])
         check(f"one {name} step from one state, CUDA graph against eager: "
               "opV2", rel(*one), 1e-5)
-        routes, variants = {}, [(True, None), (False, None), (True, "env")]
-        if name == "optimal-policy-observer":
-            variants.append((False, "adam"))
+        routes, variants = {}, [(True, None), (False, None), (True, "env"),
+                                (False, "adam")]
         for graph, plain in variants:
             e = fresh_env()
             pol = flagship_pair(name, e, graph)
@@ -3008,8 +3006,6 @@ def main() -> int:
                           ((True, "env"), "on the plain env step"),
                           ((False, "adam"), "run eagerly with Adam's plain "
                                             "version")):
-            if key not in routes:       # the full-field policy's Adam
-                continue
             r, e = routes[key]
             check(f"20 {name} steps, CUDA graphs on kernel D against {what}:"
                   " opV2", rel(torch.as_tensor(r_k["opV2"]),
@@ -3025,6 +3021,22 @@ def main() -> int:
             raise AssertionError(f"kernel {k} not launched on the flagship "
                                  "path")
     del ff_observer, policy_model, pol, routes
+    # one optimal-observer step as above, on the benchmark cell's inputs at
+    # full width after its set-up and a window
+    # (port_bench/drivers/ffo.py:capture_case): the case where the replays
+    # read a freed one-element tensor.  After the launches are read, since
+    # its windows run for a wall-clock time
+    from port_bench import harness as bench_harness
+    from port_bench.drivers import ffo as bench_ffo
+    case = bench_ffo.capture_case(2 ** 31 + 2121)
+    check("one optimal-observer step on the benchmark cell's inputs, CUDA "
+          "graph against eager: opV2", case["graph_eager"], 1e-5)
+    check("the same, CUDA graph against the float64 reference: opV2",
+          case["graph_ref"], bench_harness.cell_files(
+              "pino-fullfield-oo.ffo-loop", "pino-fullfield-oo"
+          )[0]["limits"]["opV2_rel"])
+    if not case["replays_equal"]:
+        FAILED.append("optimal-observer: two replays from one state part")
 
     # 10. PINO pretrain and finetune (train_pino) ---------------------------
     from pde_policylearning_torch import train_pino as tp

@@ -59,7 +59,14 @@ def _cuda_graph(fn: Callable[[], None], warmup: int = 2) -> Callable:
     returns the graph's replay.  The flagship policies' inner Adam loops
     are thousands of small launches a control step, which the host cannot
     issue as fast as the card runs them; replayed, they cost one launch.
-    The warm-up and the capture are the span `policy.capture`."""
+    The warm-up and the capture are the span `policy.capture`.
+
+    The graph reads and writes the tensors that `fn` holds at their
+    addresses at the capture, so the replay holds `fn`, and through its
+    closure every one of them, for as long as the graph lives.  A tensor
+    that only the closure held would go back to the caching allocator
+    once the caller returned, and the next tensor of its size would take
+    its memory: the replays would read that tensor's values."""
     with span("policy.capture"):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -70,7 +77,11 @@ def _cuda_graph(fn: Callable[[], None], warmup: int = 2) -> Callable:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             fn()
-    return graph.replay
+
+    def replay():
+        graph.replay()
+    replay.captured = fn
+    return replay
 
 
 def make_optimal_policy_observer(grid, *, observer_model, policy_model,
@@ -176,10 +187,15 @@ def make_fullfield_optimal_observer(grid, *, observer_model, bound_v_norm,
     flux, run_control.py:223).  `bound_v_norm` is the V field's statistics
     on the top wall's plane, (Nx, Nz), on the env's device; the observer
     is frozen here.  The JAX package carries the observer's parameters (a
-    TPU compile-size measure); here the carry is empty.  On the card the
-    Adam steps of a control step are one CUDA graph (`cuda_graph`),
-    captured at the first step (`policy.capture`) and replayed, its start
-    copied in, every step (`policy.replay`)."""
+    TPU compile-size measure); here the carry is empty.
+
+    The Adam is `training.optimizers.FusedAdam` on both paths (on the card
+    two launches a step, the arithmetic of `adam_plain_`), so that the
+    two paths part only where the capture would.  The descent of a control
+    step is the span `policy.descend`.  On the card it is one CUDA graph
+    (`cuda_graph`), captured at the first step (`policy.capture`) and
+    replayed, its start copied in, every step (`policy.replay`, around
+    `policy.descend`); the graph restarts its Adam itself."""
     observer_model.requires_grad_(False)
     Nx, Nz = grid.Nx, grid.Nz
     graphed = {}
@@ -192,7 +208,9 @@ def make_fullfield_optimal_observer(grid, *, observer_model, bound_v_norm,
                 + reg_weight * torch.linalg.vector_norm(v))
 
     def descend(v, opt, re_arr):
-        """`opt_steps` steps of `opt` on the leaf `v`, in place."""
+        """`opt_steps` steps of a fresh `opt` on the leaf `v`, in place."""
+        with torch.no_grad():
+            _restart(opt)
         with torch.enable_grad():
             for _ in range(opt_steps):
                 (v.grad,) = torch.autograd.grad(objective(v, re_arr), v)
@@ -200,22 +218,22 @@ def make_fullfield_optimal_observer(grid, *, observer_model, bound_v_norm,
 
     def eager(v0, re_arr):
         v = v0.clone().requires_grad_()
-        descend(v, torch.optim.Adam([v], lr=opt_lr), re_arr)
+        with span("policy.descend"):
+            descend(v, FusedAdam([v], lr=opt_lr), re_arr)
         return v.detach()
 
     def replay(v0, re_arr):
         if not graphed:
             v = v0.clone().requires_grad_()
             start, re_buf = v0.clone(), re_arr.clone()
-            opt = torch.optim.Adam([v], lr=opt_lr, capturable=True)
+            opt = FusedAdam([v], lr=opt_lr)
 
             def run():
                 with torch.no_grad():
                     v.copy_(start)
-                    _restart(opt)
                 descend(v, opt, re_buf)
             graphed.update(v=v, start=start, replay=_cuda_graph(run))
-        with span("policy.replay"):
+        with span("policy.replay"), span("policy.descend"):
             graphed["start"].copy_(v0)
             graphed["replay"]()
         return graphed["v"].detach()

@@ -339,3 +339,42 @@ def test_fused_adam_on_the_card_at_full_width(cuda_device):
         opt_mod.fused_adam_kernel([off], [off.clone()], [off.clone()],
                                   [off.clone()], torch.zeros((), device=dev),
                                   torch.empty(2, device=dev), lr=lr)
+
+
+@pytest.mark.cuda
+def test_fused_adam_on_the_card_over_one_leaf(cuda_device):
+    """The full-field optimal-observer's Adam: one 32 x 32 leaf (the top
+    wall's action), its 10 steps of lr 1e-3 against the plain version
+    `adam_plain_` on the card, gradients over five decades; after
+    `_restart` the same steps again, bit for bit (a fresh optimizer).
+    Both are float32 with the bias corrections in float64, so they part
+    by a rounding of the update's last operations: the room of the
+    full-width test above."""
+    dev, lr = cuda_device, 1e-3
+    g = torch.Generator(device=dev).manual_seed(2 ** 31 + 5)
+    start = 1e-2 * torch.randn(32, 32, generator=g, device=dev)
+    scale = 10.0 ** torch.randint(-6, -1, (32, 32), generator=g, device=dev)
+    grads = [scale * torch.randn(32, 32, generator=g, device=dev)
+             for _ in range(10)]
+    v = start.clone().requires_grad_()
+    fused = FusedAdam([v], lr=lr)
+    plain = start.clone()
+    pm, pv = torch.zeros_like(plain), torch.zeros_like(plain)
+    pstep = torch.zeros((), device=dev)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            _restart(fused)
+            v.copy_(start)
+        for gk in grads:
+            v.grad = gk
+            fused.step()
+        runs.append(v.detach().clone())
+    for gk in grads:
+        opt_mod.adam_plain_([plain], [gk], [pm], [pv], pstep, lr=lr)
+    assert torch.equal(runs[0], runs[1])
+    st = fused.state[v]
+    assert float(st["step"]) == 10
+    for a, b, atol in ((runs[0], plain, 1e-9), (st["exp_avg"], pm, 1e-10),
+                       (st["exp_avg_sq"], pv, 0.0)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=atol)

@@ -2,8 +2,10 @@
 free there, their nesting through the control loop and the batched
 rollout, their clock against torch.profiler's, and the readings of a
 profiled slice against them (`host_ms_per_step`, `device_idle`) on
-synthetic slices with known answers.  The last test needs a card: the
-flagship policy's capture and replay spans."""
+synthetic slices with known answers, and the full-field
+optimal-observer's descent span on its eager path.  The last two tests
+need a card: the flagship policies' capture, replay and descent spans on
+the graph path."""
 import time
 import tracemalloc
 from collections import Counter
@@ -11,14 +13,19 @@ from collections import Counter
 import pytest
 import torch
 
-from pde_policylearning_torch.control import (make_optimal_policy_observer,
-                                              make_policy, run_closed_loop)
+from pde_policylearning_torch.control import (
+    make_fullfield_optimal_observer, make_optimal_policy_observer,
+    make_policy, run_closed_loop)
 from pde_policylearning_torch.envs import NSControlEnv
 from pde_policylearning_torch.envs import channel_flow as cf
 from pde_policylearning_torch.models import PINObserverFullField, PolicyModel2D
+from pde_policylearning_torch.ops.normalization import NormalizerGivenMeanStd
 from pde_policylearning_torch.utils import profiling
 
 SMALL = dict(Nx=8, Ny=17, Nz=8, detect_plane=3)
+# a small full-field observer (the widths of tests/test_torch_flagship.py)
+MODEL = dict(modes1=(2, 2), modes2=(2, 2), modes3=(1, 1), layers=(8, 8, 8),
+             fc_dim=8, in_dim=1)
 # where the program's span and the profiler's range of one name may part
 CLOCK_TOLERANCE_NS = 20_000
 
@@ -245,6 +252,40 @@ def test_profile_events_on_the_cpu(env):
     assert 0 < ms < window / 1e6
 
 
+def ffo_policy(env, device, detect_plane):
+    """The full-field optimal-observer at small widths on `env`, two inner
+    steps."""
+    dtype = env.state.U.dtype
+    gen = torch.Generator(device=device).manual_seed(0)
+    observer = PINObserverFullField(plane_num=2, **MODEL, device=device,
+                                    dtype=dtype, generator=gen)
+    norm = NormalizerGivenMeanStd(
+        torch.zeros(env.grid.Nx, env.grid.Nz, dtype=dtype, device=device),
+        torch.ones(env.grid.Nx, env.grid.Nz, dtype=dtype, device=device))
+    return make_fullfield_optimal_observer(
+        env.grid, observer_model=observer, bound_v_norm=norm,
+        detect_plane=detect_plane, opt_steps=2)
+
+
+def test_descent_span_opens_once_a_control_step_eager(env):
+    """`policy.descend` once a control step, inside `loop.policy`, on the
+    eager path; off, the loop records nothing."""
+    policy = ffo_policy(env, "cpu", 3)
+    run_closed_loop(env, policy, n_steps=2, log_interval=2, detect_plane=3,
+                    verbose=False)
+    assert profiling._records == []
+    with profiling.spans() as records:
+        run_closed_loop(env, policy, n_steps=3, log_interval=3,
+                        detect_plane=3, verbose=False)
+    names = [r[0] for r in records]
+    assert Counter(names)["policy.descend"] == 3
+    assert "policy.replay" not in names and "policy.capture" not in names
+    for n, _, _, p in records:
+        if n == "policy.descend":
+            assert names[p] == "loop.policy"
+    nested_right(records)
+
+
 # -- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -291,3 +332,25 @@ def test_flagship_policy_captures_once_then_replays(cuda_device):
     names = names_under_policy(records)
     assert "policy.capture" not in names
     assert Counter(names)["policy.replay"] == 3
+
+
+@pytest.mark.cuda
+def test_descent_span_inside_the_replay_once_a_control_step(cuda_device):
+    """On the graph path `policy.descend` opens once a control step, inside
+    `policy.replay`; the capture keeps `policy.capture`, outside both."""
+    env = NSControlEnv(detect_plane=25, noise_scale=0.05, seed=0,
+                       device=cuda_device)
+    policy = ffo_policy(env, cuda_device, 25)
+    with profiling.spans() as records:
+        run_closed_loop(env, policy, n_steps=4, log_interval=2,
+                        verbose=False)
+    names = [r[0] for r in records]
+    assert Counter(names)["policy.capture"] == 1
+    assert Counter(names)["policy.replay"] == 4
+    assert Counter(names)["policy.descend"] == 4
+    for n, _, _, p in records:
+        if n == "policy.descend":
+            assert names[p] == "policy.replay"
+        if n == "policy.capture":
+            assert names[p] == "loop.policy"
+    nested_right(records)
